@@ -7,18 +7,25 @@ NVIDIA GPU.
 Phases, each fatal (non-zero exit, no "ok" line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the native host library (g++) and the EPF kernel (nvcc) from
-     the checkout, in parallel, timed;
+     the checkout, in parallel, timed; ptxas's registers and spills of
+     each EPF step (a spill is fatal) and the launch geometry;
   3. the EPF kernel against its plain torch version on the card, steps
-     0, 1 and 2, at (3,1024,1024), (3,2048,2048), (3,150,40) and (3,2,5),
-     max |diff| <= 2e-5, per-pass times (CUDA events) beside the bound;
+     0, 1 and 2, max |diff| <= 2e-5, on shapes that take the TMA copy and
+     the cp.async copy (W % 4 != 0), fit in one tile, have more tiles than
+     resident blocks, or have H < 3 (rows reflect more than once). At
+     3x1024^2, 3x2048^2 and 3x1000x1030 (cp.async) each pass is timed on
+     the card's clock (see `time_pass`), warm and cold, beside its bound;
   4. the main path: decode the committed fixtures through
      JxlImage.from_bytes(data).render_frame(0).to_u8() on cuda, each
      within 1 LSB of the committed jxl_oxide_tpu reference, with the EPF
      launch count equal to the frame's EPF passes; the flagship's EPF
-     inputs are captured in that run and the kernel is held against the
-     plain version on them; host-stage ms, device-stage ms and
-     end-to-end MP/s, warm, median of 5; one traced flagship decode
-     broken down by the port's spans and by kernel (torch.profiler).
+     inputs are captured in that run, the kernel is held against the
+     plain version on them and timed on them as in phase 3; host-stage
+     ms, device-stage ms and end-to-end MP/s, warm, median of 5; one
+     traced flagship decode broken down by the port's spans and by kernel
+     (torch.profiler).
+The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
+tools/epf_variants.py times other versions of the kernel against this one.
 It prints one {"kernels": [...]} JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. It imports neither JAX nor
 jxl_oxide_tpu, and exits non-zero without CUDA or without the package.
@@ -26,10 +33,11 @@ jxl_oxide_tpu, and exits non-zero without CUDA or without the package.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -38,28 +46,30 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 EPF_ATOL = 2e-5
-# one H100 SXM (NVIDIA data sheet): HBM rate and fp32 non-tensor peak
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
 FIXTURES = ("flagship_1024", "epf3_512", "mixed_512")
 MAIN_PATH = "flagship_1024"
+# (shape, timed): TMA and cp.async copies, one tile and many, H < 3
+KERNEL_SHAPES = (
+    ((3, 1024, 1024), True),
+    ((3, 2048, 2048), True),   # 1024 tiles: more than resident blocks
+    ((3, 1000, 1030), True),   # W % 4 != 0 and more tiles than blocks
+    ((3, 150, 42), False),     # W % 4 != 0
+    ((3, 150, 40), False),
+    ((3, 64, 64), False),      # exactly one tile
+    ((3, 40, 36), False),      # inside one tile
+    ((3, 2, 5), False),        # H < 3, W % 4 != 0
+    ((3, 1, 8), False),        # H < 3 on the TMA path
+)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms over `reps` back-to-back calls."""
+    """Mean time of fn() in ms over `reps` back-to-back calls between CUDA
+    events (host work of each call included; used for the plain
+    version)."""
     import torch
 
     for _ in range(warmup):
@@ -75,29 +85,60 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def epf_ops_per_pixel(step: int) -> int:
-    """fp32 operations of one filtered pixel (csrc/epf_math.cuh): per tap
-    and channel, kDist x (sub, abs, add) plus the scaled add; per tap the
-    weight (mul, add, max), the weight sum and 3 x (mul, add); per pixel
-    2 ops for the sigma term and 3 divisions."""
-    taps = 12 if step == 0 else 4
-    dist = 1 if step == 2 else 5
-    return taps * (3 * (3 * dist + 2) + 10) + 5
+def host_us(planes, sigma, step, cs, sm, bsm, calls: int = 200) -> float:
+    """The wrapper's host time per call in us: `calls` calls of
+    epf_step_cuda on the host clock, without a synchronisation."""
+    import torch
+
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+
+    for _ in range(3):
+        epf_step_cuda(planes, sigma, step, cs, sm, bsm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        epf_step_cuda(planes, sigma, step, cs, sm, bsm)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
-def epf_bound_ms(sigma, step: int) -> tuple[float, str]:
-    """Least time of one pass on these inputs: bytes (3 planes and sigma
-    read once, 3 planes written once) over the HBM rate, against the
-    operations that the data needs (pixels with sigma < 0.3 pass through)
-    over the fp32 peak."""
-    h, w = sigma.shape
-    byte_ms = 28.0 * h * w / HBM_BYTES_PER_S * 1e3
-    active = int((sigma >= 0.3).sum().item())
-    op_ms = epf_ops_per_pixel(step) * active / FP32_FLOPS * 1e3
-    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+def copy_path(planes) -> str:
+    """The copy the kernel takes: TMA where rows are 16-B aligned (the
+    caching allocator's blocks are, so W % 4 decides), cp.async else."""
+    return "TMA" if planes.shape[2] % 4 == 0 else "cp.async"
 
 
-def phase_build():
+def time_pass(planes, sigma, step, cs, sm, bsm) -> dict:
+    """Device ms per pass of the committed kernel, warm and cold
+    (epf_measure.input_sets), each the mean of two readings, with the
+    wrapper's host us per call, the plain version's ms and the bound."""
+    from jxl_oxide_tpu_torch.ops.cuda import epf_measure as em
+    from jxl_oxide_tpu_torch.ops.cuda.epf import _fn
+    from jxl_oxide_tpu_torch.ops.filters import epf_step
+
+    row = {}
+    for key, cold in (("warm", False), ("cold", True)):
+        sets = em.input_sets(planes, sigma, cold)
+        row[key] = statistics.fmean(
+            em.device_ms(_fn(), sets, step, cs, sm, bsm) for _ in range(2))
+        del sets
+    row["host_us"] = host_us(planes, sigma, step, cs, sm, bsm)
+    row["plain_ms"] = cuda_ms(
+        lambda: epf_step(planes, sigma, step, cs, sm, bsm), 3)
+    row["bound_ms"], row["bound_by"] = em.bound_ms(sigma, step)
+    row["cold_share"] = row["bound_ms"] / row["cold"]
+    return row
+
+
+def pass_line(row: dict) -> str:
+    return (f"device warm {row['warm']:.4f} ms, cold {row['cold']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), cold share "
+            f"of bound {row['cold_share']:.3f}, wrapper host "
+            f"{row['host_us']:.1f} us/call, plain {row['plain_ms']:.4f} ms")
+
+
+def phase_build() -> None:
     """Build the native host library and the EPF kernel in parallel."""
     from jxl_oxide_tpu_torch import native
     from jxl_oxide_tpu_torch.ops.cuda import build
@@ -112,10 +153,9 @@ def phase_build():
             errors[name] = e
         times[name] = time.perf_counter() - t0
 
-    threads = [
-        threading.Thread(target=run, args=("native g++", native.get_lib)),
-        threading.Thread(target=run, args=("epf nvcc", lambda: build.load("epf"))),
-    ]
+    jobs = [("native g++", native.get_lib),
+            ("epf nvcc", lambda: build.load("epf"))]
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
     for t in threads:
         t.start()
     for t in threads:
@@ -127,13 +167,33 @@ def phase_build():
     if not native.available():
         raise RuntimeError("native host library did not load")
     with open(os.path.join(build.BUILD_DIR, "epf.ptxas.txt")) as f:
-        for line in f:
-            if "registers" in line or "spill" in line or "smem" in line:
-                log("ptxas: " + line.strip())
+        ptxas = f.read()
+    kernel = None
+    for line in ptxas.splitlines():
+        m = re.search(r"epf_kernelILi(\d)E", line)
+        if m and "Compiling entry" in line:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            log(f"ptxas step {kernel}: {line.strip()}")
+            if int(m.group(1)) or int(m.group(2)):
+                raise RuntimeError(f"EPF step {kernel} spills registers")
+        if "registers" in line:
+            log(f"ptxas step {kernel}: {line.strip()}")
+    lib = build.load("epf")
+    for step in range(3):
+        th, smem, res = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = lib.jxl_epf_config(step, ctypes.byref(th), ctypes.byref(smem),
+                                 ctypes.byref(res))
+        if err != 0:
+            raise RuntimeError(f"EPF step {step} cannot launch: error {err}")
+        log(f"epf step {step}: {th.value} threads, {smem.value} B dynamic "
+            f"shared memory per block, {res.value} resident blocks")
 
 
-def compare_kernel(planes, sigma, step, cs, sm, bsm):
-    """(max |kernel - plain|, kernel ms, plain ms) on one input."""
+def check_kernel(planes, sigma, step, cs, sm, bsm) -> float:
+    """max |kernel - plain| on one input, fatal above EPF_ATOL."""
     import torch
 
     from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
@@ -142,58 +202,43 @@ def compare_kernel(planes, sigma, step, cs, sm, bsm):
     got = epf_step_cuda(planes, sigma, step, cs, sm, bsm)
     want = epf_step(planes, sigma, step, cs, sm, bsm)
     torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"EPF step {step} {tuple(planes.shape)}: "
+                             "non-finite output")
     err = float((got - want).abs().max().item())
-    n = planes.shape[1] * planes.shape[2]
-    reps = max(5, min(200, int(2e8 // max(n, 1))))
-    k_ms = cuda_ms(lambda: epf_step_cuda(planes, sigma, step, cs, sm, bsm),
-                   reps)
-    p_ms = cuda_ms(lambda: epf_step(planes, sigma, step, cs, sm, bsm),
-                   max(3, reps // 10))
-    return err, k_ms, p_ms
+    if not err <= EPF_ATOL:
+        raise AssertionError(
+            f"EPF kernel disagrees at step {step} {tuple(planes.shape)}: "
+            f"{err}")
+    return err
 
 
-def epf_inputs(shape, seed: int):
-    """Planes and sigma on which an EPF pass really filters (as
-    tests/torch_parity.py makes them): values near 0.5 with per-row noise
-    amplitudes from 1e-4 to 1e-1 (on uniform noise in [0, 1) every tap
-    weight is 0 and the pass is the identity); sigma spans the < 0.3
-    passthrough, exact zeros included, and filtered pixels."""
-    rng = np.random.default_rng(seed)
-    amp = 10.0 ** rng.uniform(-4, -1, (1, shape[1], 1))
-    planes = (0.5 + rng.random(shape) * amp).astype(np.float32)
-    sigma = (rng.random(shape[1:]) * 2.0).astype(np.float32)
-    sigma[rng.random(shape[1:]) < 0.1] = 0.0
-    return planes, sigma
-
-
-def phase_kernel(device):
+def phase_kernel(device) -> float:
     import torch
 
+    from jxl_oxide_tpu_torch.ops.cuda import epf_measure as em
     from jxl_oxide_tpu_torch.ops.filters import epf_step
 
-    cs = (40.0, 5.0, 3.5)
+    cs, bsm = em.CHANNEL_SCALE, em.BORDER_SAD_MUL
     worst = 0.0
-    for i, shape in enumerate(((3, 1024, 1024), (3, 2048, 2048),
-                               (3, 150, 40), (3, 2, 5))):
-        p, s = epf_inputs(shape, seed=i)
+    for i, (shape, timed) in enumerate(KERNEL_SHAPES):
+        p, s = em.epf_inputs(shape, seed=i)
         planes = torch.from_numpy(p).to(device)
         sigma = torch.from_numpy(s).to(device)
-        moved = (epf_step(planes, sigma, 1, cs, 1.0, 2.0 / 3.0) - planes
+        moved = (epf_step(planes, sigma, 1, cs, 1.0, bsm) - planes
                  ).abs().amax(0) > 1e-5
         if shape[1] * shape[2] >= 1024 and not (
                 moved[sigma >= 0.3].float().mean() > 0.3):
             raise AssertionError(f"EPF inputs {shape} barely filter")
-        for step, sm in ((0, 1.65), (1, 1.0), (2, 2.35)):
-            err, k_ms, p_ms = compare_kernel(planes, sigma, step, cs, sm,
-                                             2.0 / 3.0)
-            bound, by = epf_bound_ms(sigma, step)
-            log(f"epf step {step} {shape}: max|diff| {err:.3g}, kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms "
-                f"({by})")
-            if not err <= EPF_ATOL:
-                raise AssertionError(
-                    f"EPF kernel disagrees at step {step} {shape}: {err}")
+        path = copy_path(planes)
+        for step, sm in em.STEPS:
+            err = check_kernel(planes, sigma, step, cs, sm, bsm)
             worst = max(worst, err)
+            line = f"epf step {step} {shape} {path}: max|diff| {err:.3g}"
+            if timed:
+                line += ", " + pass_line(
+                    time_pass(planes, sigma, step, cs, sm, bsm))
+            log(line)
     return worst
 
 
@@ -260,21 +305,15 @@ def epf_passes(data: bytes) -> int:
     return epf.iters if epf.enabled else 0
 
 
-def phase_decode(device):
+def phase_decode() -> dict:
     """Main path plus the other fixtures; returns the kernel report."""
     import torch
 
-    import jxl_oxide_tpu_torch.ops.vardct_pipeline as vp
     from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda import epf_measure as em
     from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
 
     tdir = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata")
-    captured = []
-
-    def recording(planes, sigma, step, cs, sm, bsm):
-        captured.append((planes.clone(), sigma, step, cs, sm, bsm))
-        return epf_step_cuda(planes, sigma, step, cs, sm, bsm)
-
     report = None
     for name in FIXTURES:
         with open(os.path.join(tdir, f"{name}.jxl"), "rb") as f:
@@ -283,14 +322,8 @@ def phase_decode(device):
         passes = epf_passes(data)
 
         # the counted run: launches of this decode only
-        captured.clear()
-        vp.epf_step_cuda = recording
         epf_step_cuda.launches = 0
-        try:
-            u8 = JxlImage.from_bytes(data).render_frame(0).to_u8()
-            torch.cuda.synchronize()
-        finally:
-            vp.epf_step_cuda = epf_step_cuda
+        u8, captured = em.capture_decode(data)
         launches = epf_step_cuda.launches
         diff = int(np.abs(u8.astype(np.int32) - ref.astype(np.int32)).max())
         log(f"{name}: {u8.shape}, max |u8 - reference| {diff}, EPF launches "
@@ -328,20 +361,20 @@ def phase_decode(device):
 
         if name == MAIN_PATH:
             profile_decode(data)
-            errs, k_ms, p_ms, b_ms, bys = [], [], [], [], []
+            rows, errs = [], []
             for planes, sigma, step, cs, sm, bsm in captured:
-                err, k, p = compare_kernel(planes, sigma, step, cs, sm, bsm)
-                bound, by = epf_bound_ms(sigma, step)
-                log(f"main-path EPF step {step} {tuple(planes.shape)}: "
-                    f"max|diff| {err:.3g}, kernel {k:.4f} ms, plain "
-                    f"{p:.4f} ms, bound {bound:.4f} ms ({by})")
-                if not err <= EPF_ATOL:
-                    raise AssertionError(f"main-path EPF step {step}: {err}")
-                errs.append(err)
-                k_ms.append(k)
-                p_ms.append(p)
-                b_ms.append(bound)
-                bys.append(by)
+                errs.append(check_kernel(planes, sigma, step, cs, sm, bsm))
+                path = copy_path(planes)
+                row = time_pass(planes, sigma, step, cs, sm, bsm)
+                rows.append(row)
+                log(f"main-path EPF step {step} {tuple(planes.shape)} "
+                    f"{path}: max|diff| {errs[-1]:.3g}, {pass_line(row)}")
+            bys = [r["bound_by"] for r in rows]
+
+            def mean(key):
+                return statistics.fmean(r[key] for r in rows)
+
+            # per pass, mean over the main path's passes
             report = {
                 "name": "epf_step",
                 "route": "cuda",
@@ -349,11 +382,13 @@ def phase_decode(device):
                 "replaces": "jxl_oxide_tpu/ops/pallas/epf.py:30",
                 "launches": launches,
                 "max_abs_err": max(errs),
-                # per pass, mean over the main path's passes
-                "ms": sum(k_ms) / len(k_ms),
-                "plain_ms": sum(p_ms) / len(p_ms),
-                "bound_ms": sum(b_ms) / len(b_ms),
+                "ms": mean("warm"),
+                "cold_ms": mean("cold"),
+                "host_us": mean("host_us"),
+                "plain_ms": mean("plain_ms"),
+                "bound_ms": mean("bound_ms"),
                 "bound_by": max(set(bys), key=bys.count),
+                "cold_share_of_bound": mean("bound_ms") / mean("cold"),
                 "library_ms": None,
             }
     return report
@@ -370,13 +405,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     try:
-        import jxl_oxide_tpu_torch  # noqa: F401
+        from jxl_oxide_tpu_torch.ops.cuda import epf_measure as em
     except ImportError as e:
         print(f"chip_smoke: the port is not here: {e}", file=sys.stderr)
         return 3
     t_start = time.perf_counter()
-    smi = nvidia_smi()
-    log(f"card: {smi}")
+    log(f"card: {em.card()}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     device = torch.device("cuda")
@@ -384,11 +418,11 @@ def main() -> int:
     phase_build()
     worst = phase_kernel(device)
     log(f"EPF kernel vs plain: worst max|diff| {worst:.3g} (atol {EPF_ATOL})")
-    report = phase_decode(device)
+    report = phase_decode()
     report["max_abs_err"] = max(report["max_abs_err"], worst)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [report]}))
-    print(f"card: {nvidia_smi()}")
+    print(f"card: {em.card()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

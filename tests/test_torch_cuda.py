@@ -8,6 +8,8 @@ test_torch_epf_math.py). On a machine with the card:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -28,8 +30,13 @@ def cuda():
     return torch.device("cuda")
 
 
+# (3, 1000, 1030) and (3, 2048, 2048): more 64x64 tiles than resident
+# blocks; (3, 64, 64) and (3, 40, 36): one tile; W % 4 != 0 takes the
+# cp.async copy; H < 3 reflects rows more than once
 @pytest.mark.parametrize("shape", [(3, 150, 40), (3, 2, 5), (3, 1, 1),
-                                   (3, 1024, 1024)])
+                                   (3, 1024, 1024), (3, 2048, 2048),
+                                   (3, 1000, 1030), (3, 64, 64), (3, 40, 36),
+                                   (3, 150, 42), (3, 1, 8), (3, 2, 64)])
 @pytest.mark.parametrize("step,mult", [(0, 1.65), (1, 1.0), (2, 2.35)])
 def test_epf_kernel_matches_plain(cuda, shape, step, mult):
     from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
@@ -45,6 +52,86 @@ def test_epf_kernel_matches_plain(cuda, shape, step, mult):
     want = epf_step(planes, sigma, step, CS, mult, BSM)
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 2e-5
+
+
+def test_epf_kernel_launch_geometry(cuda):
+    """Persistent: at least one resident block per SM, within the card's
+    shared memory."""
+    from jxl_oxide_tpu_torch.ops.cuda import build
+
+    lib = build.load("epf")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for step in range(3):
+        threads, smem, resident = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        assert lib.jxl_epf_config(step, ctypes.byref(threads),
+                                  ctypes.byref(smem),
+                                  ctypes.byref(resident)) == 0
+        assert threads.value == 512
+        assert smem.value <= 232448
+        assert resident.value >= sms
+
+
+QUOTIENT_PROBE = r"""
+#include "epf_math.cuh"
+
+__global__ void probe(float a, unsigned lo, unsigned n,
+                      unsigned long long* bad, unsigned* first) {
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const float b = __uint_as_float(lo + i);
+    if (__float_as_uint(jxl_epf::sigma_quotient(a, b)) !=
+        __float_as_uint(a / b)) {
+      atomicAdd(bad, 1ull);
+      atomicMin(first, lo + i);
+    }
+  }
+}
+
+extern "C" int sigma_quotient_mismatches(float a, unsigned lo, unsigned n,
+                                         void* bad, void* first) {
+  probe<<<1056, 256>>>(a, lo, n, static_cast<unsigned long long*>(bad),
+                       static_cast<unsigned*>(first));
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def test_sigma_quotient_is_the_ieee_division(cuda, tmp_path):
+    """epf_math.cuh's sigma_quotient gives the IEEE quotient bit for bit
+    for the filter's neg_k and every float sigma in [0.3, 2^126), the
+    sigmas of filtered pixels (a probe kernel built with the port's nvcc
+    flags, every float of the range)."""
+    import subprocess
+
+    import numpy as np
+
+    from jxl_oxide_tpu_torch.ops.cuda import build
+    from jxl_oxide_tpu_torch.ops.cuda.epf import kernel_params
+
+    src = tmp_path / "probe.cu"
+    src.write_text(QUOTIENT_PROBE)
+    lib_path = tmp_path / "libprobe.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC_DIR,
+                    "-o", str(lib_path), str(src)], check=True, timeout=600,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.sigma_quotient_mismatches.argtypes = [
+        ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lo = int(np.float32(0.3).view(np.uint32))
+    hi = int(np.float32(2.0 ** 126).view(np.uint32))
+    neg_k = kernel_params(CS, 1.0, BSM)[5]
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda)
+    first = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    assert lib.sigma_quotient_mismatches(neg_k, lo, hi - lo, bad.data_ptr(),
+                                         first.data_ptr()) == 0
+    assert int(bad.item()) == 0, hex(int(first.item()) & 0xFFFFFFFF)
+    # the probe sees a difference where there is one: above 2^126 the
+    # reciprocal flushes to 0 and so does the quotient
+    top = int(np.float32(2.0 ** 127).view(np.uint32))
+    assert lib.sigma_quotient_mismatches(neg_k, hi, top - hi, bad.data_ptr(),
+                                         first.data_ptr()) == 0
+    assert int(bad.item()) > 0
 
 
 @pytest.mark.parametrize("name", tp.FIXTURES)
