@@ -15,15 +15,19 @@ Phases, each fatal (non-zero exit, no "ok" line):
      resident blocks, or have H < 3 (rows reflect more than once). At
      3x1024^2, 3x2048^2 and 3x1000x1030 (cp.async) each pass is timed on
      the card's clock (see `time_pass`), warm and cold, beside its bound;
-  4. the main path: decode the committed fixtures through
+  4. the decode paths: decode the committed fixtures through
      JxlImage.from_bytes(data).render_frame(0).to_u8() on cuda, each
      within 1 LSB of the committed jxl_oxide_tpu reference, with the EPF
-     launch count equal to the frame's EPF passes; the flagship's EPF
-     inputs are captured in that run, the kernel is held against the
-     plain version on them and timed on them as in phase 3; host-stage
-     ms, device-stage ms and end-to-end MP/s, warm, median of 5; one
-     traced flagship decode broken down by the port's spans and by kernel
-     (torch.profiler).
+     launch count of that decode alone equal to the frame's EPF passes:
+     the fused 4:4:4 program (flagship_1024, the main path; epf3_512;
+     mixed_512), the fused chroma-subsampled program (ycbcr420_1024,
+     bench.py's vardct_420; ycbcr422_256) and the staged path with its
+     render tail (staged_1030, W = 1030). Host-stage ms, device-stage ms
+     and end-to-end MP/s, warm, median of 5, for each. For one fixture of
+     each path (TIMED) the EPF inputs are captured in the counted run,
+     the kernel is held against the plain version on them and timed on
+     them as in phase 3, and one traced decode is broken down by the
+     port's spans and by kernel (torch.profiler).
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
 It prints one {"kernels": [...]} JSON line, the nvidia-smi line, and as
@@ -46,8 +50,12 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 EPF_ATOL = 2e-5
-FIXTURES = ("flagship_1024", "epf3_512", "mixed_512")
+FIXTURES = ("flagship_1024", "epf3_512", "mixed_512", "ycbcr420_1024",
+            "ycbcr422_256", "staged_1030")
 MAIN_PATH = "flagship_1024"
+# one fixture per decode path: fused 4:4:4, fused subsampled, staged (whose
+# EPF runs at the sample width 1030, on the kernel's cp.async copy)
+TIMED = ("flagship_1024", "ycbcr420_1024", "staged_1030")
 # (shape, timed): TMA and cp.async copies, one tile and many, H < 3
 KERNEL_SHAPES = (
     ((3, 1024, 1024), True),
@@ -242,7 +250,7 @@ def phase_kernel(device) -> float:
     return worst
 
 
-def profile_decode(data: bytes, top: int = 8) -> None:
+def profile_decode(name: str, data: bytes, top: int = 8) -> None:
     """Where the time of one warm decode goes: the port's own spans
     (utils/trace.py, host clock), kernel time by name from one
     torch.profiler trace, and the share of the decode's wall time in
@@ -277,7 +285,7 @@ def profile_decode(data: bytes, top: int = 8) -> None:
         trace_logger.removeHandler(keep)
         trace_logger.setLevel(level)
     for line in spans:
-        log(f"  span {line}")
+        log(f"  {name} span {line}")
     by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -286,15 +294,16 @@ def profile_decode(data: bytes, top: int = 8) -> None:
         row[0] += e.time_range.elapsed_us() / 1e3
         row[1] += 1
     if not by_name:
-        log("profile: torch.profiler recorded no device time (not measured)")
+        log(f"{name} profile: torch.profiler recorded no device time "
+            "(not measured)")
         return
     busy = sum(v[0] for v in by_name.values())
-    log(f"profile: decode {wall_ms:.3f} ms (traced), kernels and copies "
+    log(f"{name} profile: decode {wall_ms:.3f} ms (traced), kernels and copies "
         f"{busy:.3f} ms in {sum(v[1] for v in by_name.values())} device "
         f"ops, device idle share {max(0.0, 1 - busy / wall_ms):.3f}")
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+    for kname, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :top]:
-        log(f"  {ms:8.3f} ms {n:5d}x  {name[:90]}")
+        log(f"  {name} {ms:8.3f} ms {n:5d}x  {kname[:80]}")
 
 
 def epf_passes(data: bytes) -> int:
@@ -306,7 +315,8 @@ def epf_passes(data: bytes) -> int:
 
 
 def phase_decode() -> dict:
-    """Main path plus the other fixtures; returns the kernel report."""
+    """Every fixture through the entry point; returns the kernel report,
+    the main path's numbers with each timed path's beside them."""
     import torch
 
     from jxl_oxide_tpu_torch import JxlImage
@@ -314,7 +324,7 @@ def phase_decode() -> dict:
     from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
 
     tdir = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata")
-    report = None
+    paths = {}
     for name in FIXTURES:
         with open(os.path.join(tdir, f"{name}.jxl"), "rb") as f:
             data = f.read()
@@ -359,27 +369,23 @@ def phase_decode() -> dict:
             f"{mp / statistics.median(e2e_s):.2f} MP/s "
             f"({statistics.median(e2e_s) * 1e3:.2f} ms), warm median of 5")
 
-        if name == MAIN_PATH:
-            profile_decode(data)
+        if name in TIMED:
+            profile_decode(name, data)
             rows, errs = [], []
             for planes, sigma, step, cs, sm, bsm in captured:
                 errs.append(check_kernel(planes, sigma, step, cs, sm, bsm))
                 path = copy_path(planes)
                 row = time_pass(planes, sigma, step, cs, sm, bsm)
                 rows.append(row)
-                log(f"main-path EPF step {step} {tuple(planes.shape)} "
+                log(f"{name} EPF step {step} {tuple(planes.shape)} "
                     f"{path}: max|diff| {errs[-1]:.3g}, {pass_line(row)}")
             bys = [r["bound_by"] for r in rows]
 
             def mean(key):
                 return statistics.fmean(r[key] for r in rows)
 
-            # per pass, mean over the main path's passes
-            report = {
-                "name": "epf_step",
-                "route": "cuda",
-                "source": "jxl_oxide_tpu_torch/csrc/epf.cu",
-                "replaces": "jxl_oxide_tpu/ops/pallas/epf.py:30",
+            # per pass, mean over this decode's passes
+            paths[name] = {
                 "launches": launches,
                 "max_abs_err": max(errs),
                 "ms": mean("warm"),
@@ -389,9 +395,18 @@ def phase_decode() -> dict:
                 "bound_ms": mean("bound_ms"),
                 "bound_by": max(set(bys), key=bys.count),
                 "cold_share_of_bound": mean("bound_ms") / mean("cold"),
-                "library_ms": None,
             }
-    return report
+    main_path = paths[MAIN_PATH]
+    return {
+        "name": "epf_step",
+        "route": "cuda",
+        "source": "jxl_oxide_tpu_torch/csrc/epf.cu",
+        "replaces": "jxl_oxide_tpu/ops/pallas/epf.py:30",
+        **main_path,
+        "max_abs_err": max(p["max_abs_err"] for p in paths.values()),
+        "library_ms": None,
+        "paths": paths,
+    }
 
 
 def main() -> int:

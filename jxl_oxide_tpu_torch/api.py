@@ -4,11 +4,14 @@ Behavioral parity: jxl-oxide/src/lib.rs (JxlImage/Render) and fb.rs
 (sample conversion); the torch counterpart of jxl_oxide_tpu/api.py over
 the port's envelope. Container and header parsing is a copy of the JAX
 package's (host-side); `render_frame(0)` runs the host entropy stage of
-one 4:4:4 VarDCT keyframe (the sequence of jxl_oxide_tpu/serving.py
-`_host_stage_fast`), then ONE fused torch device program
-(ops/vardct_pipeline.py, with the EPF as a CUDA kernel), then the color
-tail. Streams outside the envelope raise JxlNotSupportedError naming the
-ROADMAP item that will port them; none decodes through a hidden path.
+one VarDCT keyframe (the sequence of jxl_oxide_tpu/serving.py
+`_host_stage_fast`), then the device stage: the fused 4:4:4 program, the
+fused chroma-subsampled program or the staged path
+(render/vardct.py, ops/vardct_pipeline.py, with the EPF as a CUDA
+kernel), the render tail (render/render.py), YCbCr -> RGB for YCbCr
+frames, and the color tail. Streams outside the envelope raise
+JxlNotSupportedError naming the ROADMAP item that will port them; none
+decodes through a hidden path.
 """
 
 from __future__ import annotations
@@ -249,7 +252,8 @@ class JxlImage:
     # -- rendering ----------------------------------------------------------
 
     def _check_envelope(self, keyframe_idx: int) -> Frame:
-        """The port's envelope: one 4:4:4 VarDCT keyframe with no extra
+        """The port's envelope: one VarDCT keyframe, 4:4:4 or
+        chroma-subsampled YCbCr (4:2:0, 4:2:2, 4:4:0), with no extra
         channels, features, upsampling or LF frame, orientation 1, and an
         XYB or enum sRGB/linear RGB colour encoding. Anything else raises
         JxlNotSupportedError naming the ROADMAP item that will port it."""
@@ -273,8 +277,8 @@ class JxlImage:
         header = fr.header
         if header.encoding != Encoding.VARDCT:
             raise _not_supported("Modular frames", 11)
-        if header.do_ycbcr or any(j != 0 for j in header.jpeg_upsampling):
-            raise _not_supported("YCbCr and chroma-subsampled VarDCT", 7)
+        if header.do_ycbcr and not any(j != 0 for j in header.jpeg_upsampling):
+            raise _not_supported("4:4:4 YCbCr VarDCT", 7)
         if (
             header.upsampling != 1
             or header.lf_level != 0
@@ -368,12 +372,20 @@ class JxlImage:
         )
 
     def _device_stage(self, host: HostStage) -> list:
-        """The fused device program on the host stage's planes (one
-        host-to-device copy), then the color tail. Returns three [H, W]
-        float32 planes on self.device."""
-        xyb = host.state.run_fused(host.hf_global, self.device)
-        host.state.trim_coeff_planes()
-        planes = [xyb[0], xyb[1], xyb[2]]
+        """The device stage on the host stage's planes: the fused 4:4:4
+        program, the fused subsampled program or the staged path, the
+        render tail, YCbCr -> RGB for a YCbCr frame, then the color tail.
+        Returns three [H, W] float32 planes on self.device."""
+        from .ops.color import ycbcr_to_rgb
+        from .render.render import render_vardct_tail
+        from .render.vardct import decode_vardct_planes
+
+        state = host.state
+        planes = decode_vardct_planes(state, host.hf_global, self.device)
+        state.trim_coeff_planes()
+        planes = render_vardct_tail(state, planes)
+        if state.header.do_ycbcr:
+            planes = list(ycbcr_to_rgb(planes[0], planes[1], planes[2]))
         tr = self._color_transform()
         if not tr.is_noop:
             with span("Transform to requested color encoding"):

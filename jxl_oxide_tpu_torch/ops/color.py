@@ -1,9 +1,10 @@
 """Color conversion on device, in torch: the ops of the port's envelope.
 
 Behavioral parity: jxl-color/src/{xyb.rs,tf*.rs}; the torch counterparts
-of jxl_oxide_tpu/ops/color.py for XYB -> mixed LMS, the 3x3 matrix and
-the sRGB transfer functions. The other transfer functions, the gamut map,
-tone mapping and YCbCr are not ported yet (ROADMAP Queue 1 item 5).
+of jxl_oxide_tpu/ops/color.py for XYB -> mixed LMS, the 3x3 matrix,
+YCbCr -> RGB and the sRGB transfer functions. The other transfer
+functions, the gamut map and tone mapping are not ported yet (ROADMAP
+Queue 1 item 5).
 
 All functions take/return [.., H, W] float32 tensors (planar).
 """
@@ -16,6 +17,7 @@ import torch
 __all__ = [
     "xyb_to_mixed_lms",
     "apply_matrix3",
+    "ycbcr_to_rgb",
     "linear_to_srgb",
     "srgb_to_linear",
 ]
@@ -44,6 +46,20 @@ def apply_matrix3(a, b, c, mat):
     ob = m[1][0] * a + m[1][1] * b + m[1][2] * c
     oc = m[2][0] * a + m[2][1] * b + m[2][2] * c
     return oa, ob, oc
+
+
+def ycbcr_to_rgb(cb, y, cr):
+    """BT.601 YCbCr -> RGB with +128/255 Y offset (ycbcr.rs:40-56). The
+    channel slots of a YCbCr frame hold (Cb, Y, Cr)."""
+    yy = y + float(np.float32(128.0 / 255.0))
+    r = cr * float(np.float32(1.402)) + yy
+    g = (
+        cb * float(np.float32(-0.114 * 1.772 / 0.587))
+        + cr * float(np.float32(-0.299 * 1.402 / 0.587))
+        + yy
+    )
+    b = cb * float(np.float32(1.772)) + yy
+    return r, g, b
 
 
 def _signed_pow(v, f):

@@ -124,15 +124,17 @@ def device_ms(fn, sets, step: int, channel_scale, step_multiplier: float,
     return start.elapsed_time(end) / (launches * replays)
 
 
-def capture_decode(data: bytes):
-    """Decode `data` on CUDA through
+def capture_decode(data: bytes, device=None):
+    """Decode `data` on `device` (CUDA by default) through
     JxlImage.from_bytes(data).render_frame(0).to_u8(); returns the u8
     image and, per EPF pass, its inputs (planes, sigma, step,
     channel_scale, step_multiplier, border_sad_mul), the planes copied
-    before the pass. Each pass still goes through epf_step_cuda and is
-    counted there."""
-    from .. import vardct_pipeline as vp
+    before the pass. Every pass of every path goes through
+    ops/filters.py apply_epf, which looks the wrapper up on this package's
+    epf module at each call: the capture wraps it there, and each pass
+    still goes through epf_step_cuda and is counted there."""
     from ...api import JxlImage
+    from . import epf as kernel
 
     captured = []
 
@@ -140,10 +142,9 @@ def capture_decode(data: bytes):
         captured.append((planes.clone(), sigma, step, cs, sm, bsm))
         return epf_step_cuda(planes, sigma, step, cs, sm, bsm)
 
-    vp.epf_step_cuda = recording
+    kernel.epf_step_cuda = recording
     try:
-        u8 = JxlImage.from_bytes(data).render_frame(0).to_u8()
-        torch.cuda.synchronize()
+        u8 = JxlImage.from_bytes(data, device=device).render_frame(0).to_u8()
     finally:
-        vp.epf_step_cuda = epf_step_cuda
+        kernel.epf_step_cuda = epf_step_cuda
     return u8, captured

@@ -12,8 +12,10 @@ semantics:
     narrower than the pad.
 
 `epf_step` is the plain version of the hand-written CUDA kernel
-(csrc/epf.cu); `ops.cuda.epf.epf_step_cuda` is the wrapper the pipeline
-calls, which uses `epf_step` only for tensors on the CPU.
+(csrc/epf.cu). Every EPF pass of a decode goes through `apply_epf`, which
+calls the kernel's wrapper `ops.cuda.epf.epf_step_cuda` (the plain
+version only for tensors on the CPU), looked up on that module at each
+call so that a measurement can wrap it in one place.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["gabor", "epf_step", "mirror_index", "EPF_NEG_K",
-           "_EPF_KERNEL", "_EPF_DIST", "PAD"]
+           "_EPF_KERNEL", "_EPF_DIST", "PAD", "sigma_map_from_blocks",
+           "apply_gabor", "apply_epf"]
 
 _EPF_KERNEL = {
     0: ((0, -2), (-1, -1), (0, -1), (1, -1), (-2, 0), (-1, 0), (1, 0),
@@ -143,3 +146,35 @@ def epf_step(planes: torch.Tensor, sigma: torch.Tensor, step: int,
     # sigma < 0.3: passthrough (epf.rs:64-69)
     keep = sigma < 0.3
     return torch.where(keep[None], center, filtered)
+
+
+def sigma_map_from_blocks(sigma_blocks: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Expand the per-8x8-block sigma grid to a per-pixel [h, w] map."""
+    m = np.repeat(np.repeat(sigma_blocks, 8, axis=0), 8, axis=1)
+    return np.ascontiguousarray(m[:h, :w]).astype(np.float32)
+
+
+def apply_gabor(planes, weights3) -> list:
+    """Gaborish on the 3 color planes with per-channel weights."""
+    return [gabor(p, tuple(w)) for p, w in zip(planes, weights3)]
+
+
+def apply_epf(planes, sigma: torch.Tensor, epf_params) -> torch.Tensor:
+    """Full EPF: steps selected by iters (filter/epf.rs:45-88), each one
+    pass of the kernel's wrapper. planes: [3, H, W] tensor or three
+    [H, W] planes; sigma: [H, W] float32 on the planes' device."""
+    from .cuda import epf as kernel
+
+    x = planes if isinstance(planes, torch.Tensor) else torch.stack(
+        list(planes))
+    cs = tuple(epf_params.channel_scale)
+    bsm = float(epf_params.border_sad_mul)
+    if epf_params.iters == 3:
+        x = kernel.epf_step_cuda(x, sigma, 0, cs,
+                                 float(epf_params.pass0_sigma_scale), bsm)
+    if epf_params.iters >= 1:
+        x = kernel.epf_step_cuda(x, sigma, 1, cs, 1.0, bsm)
+    if epf_params.iters >= 2:
+        x = kernel.epf_step_cuda(x, sigma, 2, cs,
+                                 float(epf_params.pass2_sigma_scale), bsm)
+    return x

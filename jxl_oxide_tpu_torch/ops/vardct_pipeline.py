@@ -1,17 +1,23 @@
-"""Device-side VarDCT decode pipeline, 4:4:4, in torch.
+"""Device-side VarDCT decode pipeline in torch.
 
 Behavioral parity: jxl-render/src/vardct/mod.rs (dequant_hf_varblock,
 chroma_from_luma_{lf,hf}, adaptive_lf_smoothing, copy_lf_dequant,
-transform_with_lf); the torch counterpart of
-jxl_oxide_tpu/ops/vardct_pipeline.py::build_fused_pipeline with the same
-constructor arguments and the same operation order. Each stage is a
-whole-plane tensor op; per-varblock raggedness is resolved by the
-host-built dense plan (render/vardct.py dense_plan), so every shape is
-fixed per program key. The EPF runs through the hand-written CUDA kernel
-(ops/cuda/epf.py) on a CUDA device.
+transform_with_lf); the torch counterparts of
+jxl_oxide_tpu/ops/vardct_pipeline.py's single-device programs with the
+same constructor arguments and the same operation order:
+  - build_fused_pipeline: 4:4:4 frames;
+  - build_fused_pipeline_subsampled (and its per-channel part,
+    build_fused_pipeline_1ch): chroma-subsampled YCbCr frames, with the
+    triangle chroma upsample before the filters;
+  - dequant_plane, cfl_plane, cfl_lf, gather_blocks, scatter_blocks and
+    transform_buckets: the staged path that render/vardct.py takes when
+    a dense plan overflows.
+Each fused stage is a whole-plane tensor op; per-varblock raggedness is
+resolved by the host-built dense plan (render/vardct.py dense_plan), so
+every shape is fixed per program key. Every EPF pass goes through the
+hand-written CUDA kernel on a CUDA device (ops/filters.py apply_epf).
 
-The subsampled and sharded builders are not ported yet (ROADMAP Queue 1
-items 7 and 13).
+The sharded builders are not ported yet (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -19,16 +25,53 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cuda.epf import epf_step_cuda
-from .filters import gabor
+from .filters import apply_epf, gabor
 from .varblock import inverse_varblock_batch
 
 __all__ = [
     "adaptive_lf_smoothing",
     "dense_transform_channels",
     "build_fused_pipeline",
+    "build_fused_pipeline_subsampled",
+    "build_fused_pipeline_1ch",
+    "dequant_plane",
+    "cfl_plane",
+    "cfl_lf",
+    "gather_blocks",
+    "scatter_blocks",
+    "transform_buckets",
     "upload_inputs",
 ]
+
+
+def _f32(v) -> float:
+    """A constant rounded to float32, as JAX rounds a weakly typed one."""
+    return float(np.float32(v))
+
+
+def _bias(coeff, qb, qbn: float):
+    """Dequant bias (vardct/mod.rs:443-541): |q| <= 1 -> q * qb, else
+    q - qbn / q, on the float32 quantized coefficients."""
+    q = coeff.to(torch.float32)
+    safe_q = torch.where(q == 0.0, torch.ones((), device=q.device), q)
+    return torch.where(torch.abs(q) <= 1.0, q * qb, q - qbn / safe_q)
+
+
+def _sparse_to_dense(coeff, shape):
+    """The dense int32 plane of a sparse upload: (flat_idx [N] i32 — or u16
+    index DELTAS, which arrive as an int16 view and are rebuilt by a
+    cumsum — and values [N] i8/i16/i32), ascending-unique, padded with
+    out-of-bounds indices. torch has no "drop" scatter mode: the pads are
+    redirected to one spare slot past the plane."""
+    c_idx, c_val = coeff
+    if c_idx.dtype == torch.int16:
+        c_idx = torch.cumsum(c_idx.to(torch.int32) & 0xFFFF, 0) - 1
+    n = int(np.prod(shape))
+    c_idx = torch.where(c_idx < n, c_idx.to(torch.int64),
+                        torch.full((), n, device=c_idx.device))
+    dense = torch.zeros((n + 1,), dtype=torch.int32, device=c_idx.device)
+    dense.index_put_((c_idx,), c_val.to(torch.int32))
+    return dense[:n].reshape(shape)
 
 
 def adaptive_lf_smoothing(lf_x, lf_y, lf_b, lf_scale):
@@ -270,6 +313,28 @@ def _sigma_map(sigma_blocks, H, W):
     return torch.repeat_interleave(s, 8, dim=1)[:H, :W].contiguous()
 
 
+def _filter_tail(out, sigma_blocks, gabor_weights, epf_params, embed, crop):
+    """The end of both fused programs on [3, H, W] planes: gaborish, the
+    EPF passes, then embed (ROI rect placed into a zero canvas at its
+    frame position) and crop."""
+    _, H, W = out.shape
+    if gabor_weights is not None:
+        out = torch.stack([
+            gabor(out[c], tuple(gabor_weights[c])) for c in range(3)
+        ])
+    if epf_params is not None:
+        out = apply_epf(out, _sigma_map(sigma_blocks, H, W), epf_params)
+    if embed is not None:
+        fh, fw, oy, ox = embed
+        full = torch.zeros((3, fh, fw), dtype=torch.float32,
+                           device=out.device)
+        full[:, oy:oy + out.shape[1], ox:ox + out.shape[2]] = out
+        out = full
+    if crop is not None:
+        out = out[:, : crop[0], : crop[1]]
+    return out
+
+
 def build_fused_pipeline(plane_shape, lf_shape, entries,
                          matrices, quant_bias, quant_bias_numerator,
                          global_scale, qm_scale, lf_scale,
@@ -302,21 +367,7 @@ def build_fused_pipeline(plane_shape, lf_shape, entries,
     def pipeline(coeff, lf_quant, lf_scale_arr, x_grid, b_grid,
                  sigma_blocks, code_grid, mul_grid):
         if sparse_coeff_n is not None:
-            # sparse upload: (flat_idx [N] i32 — or u16 index DELTAS, which
-            # arrive as an int16 view and are rebuilt by a cumsum — and
-            # values [N] i8/i16/i32), ascending-unique, padded with
-            # out-of-bounds indices. torch has no "drop" scatter mode: the
-            # pads are redirected to one spare slot past the plane.
-            c_idx, c_val = coeff
-            if c_idx.dtype == torch.int16:
-                c_idx = torch.cumsum(c_idx.to(torch.int32) & 0xFFFF, 0) - 1
-            n = 3 * H * W
-            c_idx = torch.where(c_idx < n, c_idx.to(torch.int64),
-                                torch.full((), n, device=c_idx.device))
-            dense = torch.zeros((n + 1,), dtype=torch.int32,
-                                device=c_idx.device)
-            dense.index_put_((c_idx,), c_val.to(torch.int32))
-            coeff = dense[:n].reshape(3, H, W)
+            coeff = _sparse_to_dense(coeff, (3, H, W))
         # --- LF: dequant + CfL + smoothing ---
         lf_planes = lf_quant.to(torch.float32) * lf_scale_arr[:, None, None]
         lf_planes = torch.stack([
@@ -346,47 +397,192 @@ def build_fused_pipeline(plane_shape, lf_shape, entries,
             kb_map = kb_map.repeat_interleave(64, 0).repeat_interleave(
                 64, 1)[:H, :W]
 
-        # dequant bias (vardct/mod.rs:443-541), dense over the plane
-        q = coeff.to(torch.float32)
-        safe_q = torch.where(q == 0.0, torch.ones((), device=q.device), q)
-        biased = torch.where(torch.abs(q) <= 1.0, q * qb, q - qbn / safe_q)
-
+        biased = _bias(coeff, qb, qbn)
         out = dense_transform_channels(
             biased, lf_planes, kx_map, kb_map,
             code_grid, mul_grid.to(torch.float32), entries, matrices,
             global_scale, qm_scale, consts=consts,
         )
 
-        # --- restoration filters ---
-        if gabor_weights is not None:
-            out = torch.stack([
-                gabor(out[c], tuple(gabor_weights[c])) for c in range(3)
-            ])
-        if epf_params is not None:
-            sigma = _sigma_map(sigma_blocks, H, W)
-            cs = tuple(epf_params.channel_scale)
-            bsm = float(epf_params.border_sad_mul)
-            if epf_params.iters == 3:
-                out = epf_step_cuda(out, sigma, 0, cs,
-                                    float(epf_params.pass0_sigma_scale), bsm)
-            if epf_params.iters >= 1:
-                out = epf_step_cuda(out, sigma, 1, cs, 1.0, bsm)
-            if epf_params.iters >= 2:
-                out = epf_step_cuda(out, sigma, 2, cs,
-                                    float(epf_params.pass2_sigma_scale), bsm)
-        if embed is not None:
-            # ROI rect: place the computed sub-plane into a zero canvas at
-            # its frame position
-            fh, fw, oy, ox = embed
-            full = torch.zeros((3, fh, fw), dtype=torch.float32,
-                               device=out.device)
-            full[:, oy:oy + out.shape[1], ox:ox + out.shape[2]] = out
-            out = full
-        if crop is not None:
-            out = out[:, : crop[0], : crop[1]]
-        return out
+        return _filter_tail(out, sigma_blocks, gabor_weights, epf_params,
+                            embed, crop)
 
     return pipeline
+
+
+def _triangle_up2(p, axis: int):
+    """JPEG chroma 2x triangle upsample along one axis, clamp-to-edge
+    (filter/ycbcr.rs apply_jpeg_upsampling_single): out[2j] leans on the
+    previous sample, out[2j+1] on the next.
+
+    Written adds-first with one exact *0.25 at the end ((prev + 3p)/4
+    with 3p = (p+p)+p), as the JAX package writes it: adds followed by a
+    power-of-two multiply cannot contract to FMA, so the result is the
+    same bit for bit on every backend. Eager torch ops never contract;
+    a fused kernel would have to keep this order itself."""
+    p0 = torch.movedim(p, axis, 0)
+    prev = torch.cat([p0[:1], p0[:-1]], dim=0)
+    nxt = torch.cat([p0[1:], p0[-1:]], dim=0)
+    p3 = (p0 + p0) + p0
+    a = (prev + p3) * 0.25
+    b = (p3 + nxt) * 0.25
+    out = torch.stack([a, b], dim=1).reshape(
+        (2 * p0.shape[0],) + tuple(p0.shape[1:]))
+    return torch.movedim(out, 0, axis)
+
+
+def build_fused_pipeline_1ch(plane_shape, lf_shape, entries, matrices,
+                             quant_bias: float, quant_bias_numerator: float,
+                             global_scale, qm_scale: float, lf_scale: float,
+                             device=None):
+    """Single-channel program of a chroma-subsampled frame: LF dequant ->
+    dequant bias -> dense inverse transforms at the channel's stored
+    geometry (no CfL across channels; the filters run after the chroma
+    upsample, image.rs:448-486).
+
+    entries: ((sel, oy, ox), ...); matrices: {sel: [h, w]} this channel.
+    fn(coeff [H, W] int, lf_quant [LH, LW], code_grid, mul_grid)
+    -> [H, W] f32 on `device`.
+    """
+    from ..device import resolve_device
+
+    device = resolve_device(device)
+    mats3 = {sel: np.asarray(m)[None] for sel, m in matrices.items()}
+    consts = _entry_constants(entries, mats3, lf_shape, device)
+    qb, qbn = _f32(quant_bias), _f32(quant_bias_numerator)
+    lf_s = _f32(lf_scale)
+
+    def pipeline(coeff, lf_quant, code_grid, mul_grid):
+        lf_plane = lf_quant.to(torch.float32) * lf_s
+        out = dense_transform_channels(
+            _bias(coeff, qb, qbn)[None], lf_plane[None], None, None,
+            code_grid, mul_grid.to(torch.float32), entries, mats3,
+            global_scale, (qm_scale,), consts=consts,
+        )
+        return out[0]
+
+    return pipeline
+
+
+def build_fused_pipeline_subsampled(
+    plane_shapes, lf_shapes, full_shape, entries3, matrices3,
+    quant_bias, quant_bias_numerator,
+    global_scale, qm_scale, lf_scale,
+    gabor_weights=None, epf_params=None,
+    sparse_coeff_n=None,
+    crop=None, embed=None, device=None,
+):
+    """One program for a chroma-subsampled (do_ycbcr, 4:2:0/4:2:2/4:4:0)
+    VarDCT frame: each channel's build_fused_pipeline_1ch at its stored
+    geometry, then the triangle chroma upsample (horizontal, then
+    vertical, while the channel is short) and the restoration filters at
+    full resolution. No CfL (the reference skips LF and HF CfL for
+    subsampled frames, vardct/mod.rs:184,355) and no adaptive LF smoothing
+    (subsampled streams set skip_adaptive_lf_smoothing).
+
+    plane_shapes/lf_shapes: per-channel [x, y, b] stored geometries;
+    full_shape: (Hr, Wr) rounded full resolution; entries3/matrices3/
+    qm_scale/lf_scale/quant_bias: per-channel plans and constants.
+    sparse_coeff_n: per-channel tuple of sparse upload sizes (None
+    entries = dense upload for that channel).
+
+    fn(c0, l0, code0, mul0, c1, l1, code1, mul1, c2, l2, code2, mul2,
+    sigma_blocks) -> [3, crop_h, crop_w] f32 full-resolution planes on
+    `device` (still YCbCr; the BT.601 conversion comes after)."""
+    Hr, Wr = full_shape
+    chans = [
+        build_fused_pipeline_1ch(
+            plane_shapes[c], lf_shapes[c], entries3[c], matrices3[c],
+            quant_bias[c], quant_bias_numerator, global_scale, qm_scale[c],
+            lf_scale[c], device=device,
+        )
+        for c in range(3)
+    ]
+
+    def pipeline(*args):
+        planes = []
+        for c in range(3):
+            coeff, lf_quant, code_grid, mul_grid = args[4 * c : 4 * c + 4]
+            if sparse_coeff_n is not None and sparse_coeff_n[c] is not None:
+                coeff = _sparse_to_dense(coeff, plane_shapes[c])
+            outc = chans[c](coeff, lf_quant, code_grid, mul_grid)
+            while outc.shape[1] < Wr:
+                outc = _triangle_up2(outc, 1)
+            while outc.shape[0] < Hr:
+                outc = _triangle_up2(outc, 0)
+            planes.append(outc[:Hr, :Wr])
+        return _filter_tail(torch.stack(planes), args[12], gabor_weights,
+                            epf_params, embed, crop)
+
+    return pipeline
+
+
+# -- the staged path's stages (render/vardct.py _run_staged) ---------------
+
+
+def dequant_plane(raw_plane, dmap, quant_bias: float,
+                  quant_bias_numerator: float):
+    """HF coefficient dequantization over a whole coefficient plane:
+    the dequant bias, times the host-built per-position multiplier map
+    (matrix value x 65536 / (global_scale * hf_mul) * qm_scale)."""
+    return _bias(raw_plane, _f32(quant_bias),
+                 _f32(quant_bias_numerator)) * dmap
+
+
+def cfl_plane(coeff_x, coeff_y, coeff_b, kx_map, kb_map):
+    """Chroma-from-luma: x += kx*y, b += kb*y with per-64x64-tile factors
+    expanded to full-resolution maps on the host (vardct/mod.rs:570-607)."""
+    return coeff_x + kx_map * coeff_y, coeff_b + kb_map * coeff_y
+
+
+def cfl_lf(lf_x, lf_y, lf_b, kx: float, kb: float):
+    """LF chroma-from-luma with scalar factors (vardct/mod.rs:544-567)."""
+    return lf_x + _f32(kx) * lf_y, lf_b + _f32(kb) * lf_y
+
+
+def _flat_index(idx, n: int):
+    """int64 flat indices with jnp's rule: an index in [-n, 0) counts from
+    the end; `inside` marks those within [-n, n)."""
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    return idx, (idx >= 0) & (idx < n)
+
+
+def gather_blocks(plane, idx):
+    """plane.ravel()[idx] with idx [n, h, w] integer; an index outside the
+    plane reads 0 (jnp.take's "fill" mode, written out)."""
+    flat = plane.reshape(-1)
+    idx, inside = _flat_index(idx, flat.numel())
+    got = torch.take(flat, torch.where(inside, idx, 0))
+    return torch.where(inside, got, torch.zeros((), dtype=flat.dtype,
+                                                device=flat.device))
+
+
+def scatter_blocks(plane, idx, values):
+    """plane.ravel()[idx] = values as a new plane; a write outside the
+    plane is dropped (the "drop" mode, written out: it lands in a spare
+    slot past the plane)."""
+    flat = plane.reshape(-1)
+    n = flat.numel()
+    idx, inside = _flat_index(idx.reshape(-1), n)
+    out = torch.cat([flat, flat.new_zeros(1)])
+    out.index_put_((torch.where(inside, idx, n),),
+                   values.reshape(-1).to(out.dtype))
+    return out[:n].reshape(plane.shape)
+
+
+def transform_buckets(coeff_plane, lf_plane, out_plane, buckets):
+    """Apply all varblock inverse transforms for one channel.
+
+    buckets: list of (dct_select, coeff_idx [n,H,W], lf_idx [n,bh,bw],
+    out_idx [n,H,W]) index tensors into the flattened planes, on the
+    planes' device. Each bucket is one batched transform."""
+    for sel, coeff_idx, lf_idx, out_idx in buckets:
+        coeffs = gather_blocks(coeff_plane, coeff_idx)
+        lf = gather_blocks(lf_plane, lf_idx)
+        pixels = inverse_varblock_batch(coeffs, lf, sel)
+        out_plane = scatter_blocks(out_plane, out_idx, pixels)
+    return out_plane
 
 
 _ALIGN = 16

@@ -4,14 +4,20 @@ Behavioral parity: jxl-render/src/vardct/mod.rs (render_vardct) and
 jxl-frame/src/data/{lf_group,hf_global,pass_group}.rs. The reference decodes
 and transforms per 256x256 group on CPU threads; here the host stage fills
 whole-frame coefficient planes (per TOC section, the host-parallel grain)
-and then ONE torch device pipeline does everything numeric: LF
+and then the device stage does everything numeric: LF
 dequant+CfL+smoothing, HF dequant, HF CfL, the dense varblock inverse
 transforms, gaborish and the EPF (ops/vardct_pipeline.py).
 
-This is the host half of jxl_oxide_tpu/render/vardct.py, cut to the port's
-envelope: the single-device fused 4:4:4 path. The subsampled, sharded,
-staged and progressive paths are not ported yet (ROADMAP Queue 1 items
-7-9, 13) and raise JxlNotSupportedError where a stream would need them.
+This is jxl_oxide_tpu/render/vardct.py on one device, cut to the port's
+envelope. `run_device_pipeline` takes one of three paths, as the JAX
+package does:
+  - the fused 4:4:4 program;
+  - the fused subsampled program (chroma upsample and filters included);
+  - the staged path, per-plane dequant and bucketed transforms, when a
+    dense plan has more than DENSE_PLAN_MAX_ENTRIES entries; the render
+    tail (render/render.py) then upsamples and filters.
+The sharded, ROI and progressive paths are not ported yet (ROADMAP Queue
+1 items 9 and 13).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..headers.frame import Encoding
 from ..io.bitstream import Bitstream
@@ -39,8 +46,8 @@ __all__ = ["HfGlobal", "LfGroup", "VardctFrameState"]
 
 # Cap on dense transform-plan entries (each entry is a full-plane pass;
 # valid but pathological streams can stagger large transforms across
-# hundreds of block-offset residue classes). Above it the JAX package
-# takes its staged gather path, which the port does not have yet.
+# hundreds of block-offset residue classes). Above it the decode takes
+# the staged gather path, whose work is bounded by the 27 types.
 DENSE_PLAN_MAX_ENTRIES = 96
 
 
@@ -144,21 +151,49 @@ def parse_lf_group(
 
 
 class _Bucket:
-    """Varblocks of one transform type within a channel plane: pos3 is the
-    raw [n, 3] (x, y, hf_mul) array in block units. (The JAX package's
-    gather-plan `indices` serve only its staged fallback, not ported.)"""
+    """Varblocks of one transform type within a channel plane.
 
-    __slots__ = ("sel", "pos3", "plane_shape", "lf_shape")
+    pos3 is the raw [n, 3] (x, y, hf_mul) array in block units; `indices`
+    builds the [n, bh*8, bw*8] coefficient / [n, bh, bw] LF gather plans
+    on demand (only the staged path needs them — the fused programs
+    expand positions on device)."""
+
+    __slots__ = ("sel", "pos3", "plane_shape", "lf_shape", "_idx")
 
     def __init__(self, sel, pos3, plane_shape, lf_shape):
         self.sel = sel
         self.pos3 = pos3
         self.plane_shape = plane_shape
         self.lf_shape = lf_shape
+        self._idx = None
 
     @property
     def n(self) -> int:
         return len(self.pos3)
+
+    @property
+    def muls(self) -> np.ndarray:
+        return self.pos3[:, 2].astype(np.float64)
+
+    def indices(self):
+        if self._idx is None:
+            bw, bh = TransformType.SELECT_SIZE[self.sel]
+            h, w = bh * 8, bw * 8
+            _, pw = self.plane_shape
+            _, lw = self.lf_shape
+            pos = self.pos3
+            dy = np.arange(h)[:, None]
+            dx = np.arange(w)[None, :]
+            rows = pos[:, 1, None, None] * 8 + dy
+            cols = pos[:, 0, None, None] * 8 + dx
+            coeff_idx = (rows * pw + cols).astype(np.int32)
+            ldy = np.arange(bh)[:, None]
+            ldx = np.arange(bw)[None, :]
+            lrows = pos[:, 1, None, None] + ldy
+            lcols = pos[:, 0, None, None] + ldx
+            lf_idx = (lrows * lw + lcols).astype(np.int32)
+            self._idx = (coeff_idx, lf_idx)
+        return self._idx
 
 
 import threading as _threading
@@ -335,10 +370,17 @@ class VardctFrameState:
         # inside the decode's write path
         self.lf_quant_planes = _pool_acquire(tuple(self.lf_shapes))
         self.coeff_planes = _pool_acquire(tuple(self.plane_shapes))
-        # set by run_fused, whose device inputs are COPIES of the planes;
-        # gates recycling in trim_coeff_planes
+        # set by the fused 4:4:4 path, whose device inputs are COPIES of
+        # the planes; gates recycling in trim_coeff_planes
         self._planes_poolable = False
         self.extra_precision = 0
+        self.filters_applied = False
+        # fused subsampled path: planes already at full resolution
+        # (chroma upsample fused into the device program)
+        self.chroma_upsampled = False
+        # LF planes handed down from a rendered LF frame (use_lf_frame);
+        # LF frames are not ported (ROADMAP Queue 1 item 9)
+        self.lf_override = getattr(frame, "_lf_frame_planes", None)
         self.lf_groups: dict[int, LfGroup] = {}
         self.opsin = meta.opsin_inverse_matrix
 
@@ -461,8 +503,93 @@ class VardctFrameState:
             hf_coeff_output=self.group_plane_views(group_idx),
         )
 
-    # -- device pipeline ----------------------------------------------------
+    # -- host-built inputs of the device stage -----------------------------
 
+    def _cfl_grids(self):
+        """Frame-wide per-64x64 CfL integer grids (x_from_y, b_from_y)."""
+        header = self.header
+        w64 = _ceil_div(self.width_rounded, 64)
+        h64 = _ceil_div(self.height_rounded, 64)
+        x_grid = np.zeros((h64, w64), dtype=np.int32)
+        b_grid = np.zeros((h64, w64), dtype=np.int32)
+        lfg_per_row = header.lf_groups_per_row
+        for lf_group_idx, group in self.lf_groups.items():
+            if group.hf_meta is None:
+                continue
+            gx = lf_group_idx % lfg_per_row
+            gy = lf_group_idx // lfg_per_row
+            x0 = gx * (header.lf_group_dim // 64)
+            y0 = gy * (header.lf_group_dim // 64)
+            gh, gw = group.hf_meta.x_from_y.shape
+            x_grid[y0 : y0 + gh, x0 : x0 + gw] = group.hf_meta.x_from_y
+            b_grid[y0 : y0 + gh, x0 : x0 + gw] = group.hf_meta.b_from_y
+        return x_grid, b_grid
+
+    def _sigma_blocks_grid(self) -> np.ndarray:
+        """Full-resolution per-8x8-block EPF sigma grid assembled from the
+        per-LF-group HfMetadata grids."""
+        header = self.header
+        rf = header.restoration_filter
+        bh_all = -(-self.height_rounded // 8)
+        bw_all = -(-self.width_rounded // 8)
+        sigma_blocks = np.full(
+            (bh_all, bw_all),
+            rf.epf.sigma_for_modular if rf.epf.enabled else 0.0,
+            dtype=np.float32,
+        )
+        lfg_per_row = header.lf_groups_per_row
+        for lf_group_idx, group in self.lf_groups.items():
+            if group.hf_meta is None:
+                continue
+            gx = lf_group_idx % lfg_per_row
+            gy = lf_group_idx // lfg_per_row
+            sg = group.hf_meta.epf_sigma
+            sy0 = gy * header.group_dim
+            sx0 = gx * header.group_dim
+            sh_ = sigma_blocks[sy0 : sy0 + sg.shape[0], sx0 : sx0 + sg.shape[1]]
+            sh_[:, :] = sg[: sh_.shape[0], : sh_.shape[1]]
+        return sigma_blocks
+
+    def build_dequant_maps(self, hf_global: HfGlobal | None, x_qm_scale,
+                           b_qm_scale):
+        """Per-channel full-plane dequant multiplier maps
+        (dequant_hf_varblock_grouped, vardct/mod.rs:443-541), built by
+        vectorized scatter over the per-type bucket index plans."""
+        if hf_global is None:
+            return [np.zeros(self.plane_shapes[c], dtype=np.float32)
+                    for c in range(3)]
+        quantizer = self.frame.lf_global.vardct.quantizer
+        qm_scale = [
+            0.8 ** (x_qm_scale - 2),
+            1.0,
+            0.8 ** (b_qm_scale - 2),
+        ]
+        maps = []
+        for c in range(3):
+            dmap = np.zeros(self.plane_shapes[c], dtype=np.float32)
+            flat = dmap.reshape(-1)
+            for b in self.buckets(c):
+                matrix = hf_global.dequant_matrices.get(
+                    c, b.sel, TransformType.need_transpose(b.sel)
+                )
+                base = 65536.0 / quantizer.global_scale * qm_scale[c]
+                vals = matrix[None, :, :] * (base / b.muls)[:, None, None]
+                coeff_idx = b.indices()[0]
+                flat[coeff_idx.reshape(-1)] = vals.reshape(-1).astype(np.float32)
+            maps.append(dmap)
+        return maps
+
+    def build_cfl_maps(self):
+        """Full-resolution kx/kb maps from the per-64x64 CfL grids
+        (chroma_from_luma_hf_grouped)."""
+        corr = self.frame.lf_global.vardct.lf_chan_corr
+        h, w = self.plane_shapes[0]
+        x_grid, b_grid = self._cfl_grids()
+        kx = corr.base_correlation_x + x_grid.astype(np.float32) / corr.colour_factor
+        kb = corr.base_correlation_b + b_grid.astype(np.float32) / corr.colour_factor
+        kx_map = np.repeat(np.repeat(kx, 64, axis=0), 64, axis=1)[:h, :w]
+        kb_map = np.repeat(np.repeat(kb, 64, axis=0), 64, axis=1)[:h, :w]
+        return np.ascontiguousarray(kx_map), np.ascontiguousarray(kb_map)
 
     def buckets(self, channel: int) -> "list[_Bucket]":
         """Cached per-transform-type varblock buckets for one channel.
@@ -572,6 +699,32 @@ class VardctFrameState:
             mul[y, x] = m.astype(np.float32)
         return tuple(entries), code, mul
 
+    def build_transform_buckets(self, channel: int):
+        """Gather/scatter index plans (without muls), for the staged
+        path."""
+        out = []
+        for b in self.buckets(channel):
+            ci, li = b.indices()
+            out.append((b.sel, ci, li, ci))
+        return out
+
+    # -- device stage -------------------------------------------------------
+
+    def run_device_pipeline(self, hf_global: HfGlobal | None, device):
+        """Dequant -> CfL -> inverse transforms (and, on the fused paths,
+        the filters), on `device`. Returns [x, y, b] float32 planes: at
+        frame sample size from the fused 4:4:4 program, at full
+        resolution (still YCbCr) from the fused subsampled one, at the
+        shifted rounded plane sizes from the staged path. The flags
+        filters_applied and chroma_upsampled say which.
+
+        Subsampled frames never carry adaptive LF smoothing (rejected at
+        FrameHeader.parse) or an LF-frame override (jpeg_upsampling is only
+        coded when !use_lf_frame, header.rs:25)."""
+        if not self.subsampled:
+            return self._run_fused(hf_global, device)
+        return self._run_fused_subsampled(hf_global, device)
+
     _fused_cache: dict = {}
 
     def _fused_host_inputs(self, hf_global: HfGlobal | None, rect=None):
@@ -625,34 +778,8 @@ class VardctFrameState:
         epf_params = rf.epf if rf.epf.enabled else None
 
         # frame-wide CfL integer grids + EPF sigma blocks
-        h, w = self.plane_shapes[0]
-        w64 = -(-self.width_rounded // 64)
-        h64 = -(-self.height_rounded // 64)
-        x_grid = np.zeros((h64, w64), dtype=np.int32)
-        b_grid = np.zeros((h64, w64), dtype=np.int32)
-        bh_all = -(-self.height_rounded // 8)
-        bw_all = -(-self.width_rounded // 8)
-        sigma_blocks = np.full(
-            (bh_all, bw_all),
-            rf.epf.sigma_for_modular if rf.epf.enabled else 0.0,
-            dtype=np.float32,
-        )
-        lfg_per_row = header.lf_groups_per_row
-        for lf_group_idx, group in self.lf_groups.items():
-            if group.hf_meta is None:
-                continue
-            gx = lf_group_idx % lfg_per_row
-            gy = lf_group_idx // lfg_per_row
-            x0 = gx * (header.lf_group_dim // 64)
-            y0 = gy * (header.lf_group_dim // 64)
-            gh, gw = group.hf_meta.x_from_y.shape
-            x_grid[y0 : y0 + gh, x0 : x0 + gw] = group.hf_meta.x_from_y
-            b_grid[y0 : y0 + gh, x0 : x0 + gw] = group.hf_meta.b_from_y
-            sg = group.hf_meta.epf_sigma
-            sy0 = gy * header.group_dim
-            sx0 = gx * header.group_dim
-            sh_ = sigma_blocks[sy0 : sy0 + sg.shape[0], sx0 : sx0 + sg.shape[1]]
-            sh_[:, :] = sg[: sh_.shape[0], : sh_.shape[1]]
+        x_grid, b_grid = self._cfl_grids()
+        sigma_blocks = self._sigma_blocks_grid()
 
         if rect is not None:
             x0, y0, x1, y1 = rect
@@ -855,26 +982,18 @@ class VardctFrameState:
         ]
         return key, make_fn, inputs
 
-    @traced("Dequant and transform")
-    def run_fused(self, hf_global: HfGlobal | None, device):
-        """torch twin of the JAX package's _run_fused: ONE host-to-device
-        copy of every input (packed into one pinned staging buffer on a
-        CUDA device), then the cached fused program. Returns the [3, H, W]
-        float32 frame-size planes on `device`."""
+    def _run_program(self, make_parts, hf_global: HfGlobal | None, device):
+        """One fused program: its host inputs (make_parts(hf_global)), ONE
+        host-to-device copy of all of them (packed into one pinned staging
+        buffer on a CUDA device), then the program, built once per key and
+        device in the class-wide cache. Returns its three planes on
+        `device`, or None when the dense plan overflows."""
         from ..ops.vardct_pipeline import upload_inputs
 
-        if self.subsampled:
-            raise JxlNotSupportedError(
-                "chroma-subsampled VarDCT is not ported yet "
-                "(ROADMAP Queue 1 item 7)"
-            )
         with span("Fused program inputs"):
-            parts = self.fused_program_parts(hf_global)
+            parts = make_parts(hf_global)
         if parts is None:
-            raise JxlNotSupportedError(
-                f"dense plan over {DENSE_PLAN_MAX_ENTRIES} entries needs the "
-                "staged path, not ported yet (ROADMAP Queue 1 item 8)"
-            )
+            return None
         key, make_fn, inputs = parts
         dev_key = (key, str(device))
         fn = self._fused_cache.get(dev_key)
@@ -887,8 +1006,287 @@ class VardctFrameState:
             placed = upload_inputs(inputs, device)
         with span("Fused program"):
             out = fn(*placed)
-        self._planes_poolable = True  # inputs above are plane COPIES
+        self.filters_applied = True
+        return [out[0], out[1], out[2]]
+
+    @traced("Dequant and transform")
+    def _run_fused(self, hf_global: HfGlobal | None, device):
+        """The fused 4:4:4 program, or the staged path when the dense plan
+        overflows. Returns the [x, y, b] frame-size planes on `device`."""
+        out = self._run_program(self.fused_program_parts, hf_global, device)
+        if out is None:
+            return self._run_staged(hf_global, device)
+        self._planes_poolable = True  # its inputs were plane COPIES
         return out
+
+    def _subsampled_channel_plans(self, hf_global: HfGlobal | None):
+        """Per-channel (entries, code_grid, mul_grid, matrices) dense
+        plans of the fused subsampled program, with the qm scales; None
+        when a channel's plan overflows (the staged path)."""
+        header = self.header
+        qm_scale = (
+            0.8 ** (header.x_qm_scale - 2),
+            1.0,
+            0.8 ** (header.b_qm_scale - 2),
+        )
+        plans = []
+        for c in range(3):
+            buckets = self.buckets(c)
+            entries, code_grid, mul_grid = self.dense_plan(
+                buckets, self.lf_shapes[c])
+            if len(entries) > DENSE_PLAN_MAX_ENTRIES:
+                return None
+            matrices = {}
+            for b in buckets:
+                sel = b.sel
+                if hf_global is not None:
+                    matrices[sel] = hf_global.dequant_matrices.get(
+                        c, sel, TransformType.need_transpose(sel)
+                    )
+                else:
+                    tw, th = TransformType.SELECT_SIZE[sel]
+                    matrices[sel] = np.zeros((th * 8, tw * 8), dtype=np.float32)
+            plans.append((entries, code_grid, mul_grid, matrices))
+        return plans, qm_scale
+
+    def fused_subsampled_program_parts(self, hf_global: HfGlobal | None,
+                                       copy_inputs: bool = False):
+        """(key, make_fn, inputs) for the fused subsampled program, or
+        None when the dense plan overflows (the staged path). `inputs`
+        are host numpy arrays, bit-identical to the JAX package's (13 of
+        them: per channel coefficients — a sparse (index, value) pair or
+        a dense plane, chosen per channel —, LF, code and mul grids, then
+        the sigma grid); make_fn(device) builds the torch program. With
+        copy_inputs, dense plane references are copied so that the caller
+        may pool the state's planes."""
+        header = self.header
+        quantizer = self.frame.lf_global.vardct.quantizer
+        lf_dequant = self.frame.lf_global.lf_dequant
+        scale_inv = quantizer.global_scale * quantizer.quant_lf
+        precision_scale = 1 << (9 - self.extra_precision)
+        lf_scale = tuple(
+            float(lf_dequant[c] * precision_scale / scale_inv)
+            for c in range(3)
+        )
+        planned = self._subsampled_channel_plans(hf_global)
+        if planned is None:
+            return None
+        plans, qm_scale = planned
+
+        rf = header.restoration_filter
+        gabor_weights = (
+            tuple(map(tuple, rf.gab.weights)) if rf.gab.enabled else None
+        )
+        epf_params = rf.epf if rf.epf.enabled else None
+        sigma_blocks = self._sigma_blocks_grid()
+        full_shape = (self.height_rounded, self.width_rounded)
+        embed = None
+        plane_shapes = tuple(self.plane_shapes)
+        entries3 = tuple(p[0] for p in plans)
+        matrices3 = tuple(p[3] for p in plans)
+
+        # per-channel sparse upload when it beats dense int16
+        from .. import native as _native
+
+        inputs = []
+        sparse_ns = []
+        for c in range(3):
+            coeff = self.coeff_planes[c]
+            lf_q = self.lf_quant_planes[c]
+            sparse_n = None
+            if _native.available():
+                flat = np.ascontiguousarray(coeff.reshape(-1))
+                cap = max(coeff.size // 6, 1024)
+                idx_buf = np.zeros(cap, dtype=np.int32)
+                val_buf = np.zeros(cap, dtype=np.int32)
+                nz_count, max_abs = _native.sparse_extract(flat, idx_buf, val_buf)
+                # dense int16 plane = size*2 bytes; sparse entry = 6
+                # bytes worst case: go sparse under half the dense bytes
+                if nz_count * 6 < coeff.size and _sparse_upload_enabled():
+                    sparse_n = 1 << max(10, int(nz_count - 1).bit_length())
+                    coeff_input = _pack_sparse_upload(
+                        idx_buf, val_buf, nz_count, max_abs, sparse_n,
+                        coeff.size,
+                    )
+                elif max_abs < 32768:
+                    coeff_input = coeff.astype(np.int16)
+                else:
+                    coeff_input = coeff.copy() if copy_inputs else coeff
+            elif np.abs(coeff).max(initial=0) < 32768:
+                coeff_input = coeff.astype(np.int16)
+            else:
+                coeff_input = coeff.copy() if copy_inputs else coeff
+            sparse_ns.append(sparse_n)
+            if copy_inputs:
+                lf_q = lf_q.copy()
+            inputs.extend([coeff_input, lf_q, plans[c][1], plans[c][2]])
+        inputs.append(sigma_blocks)
+
+        key = (
+            "sub_fused", tuple(sparse_ns), plane_shapes, full_shape, embed,
+            entries3,
+            tuple(float(q) for q in self.opsin.quant_bias),
+            float(self.opsin.quant_bias_numerator),
+            quantizer.global_scale, qm_scale, lf_scale,
+            gabor_weights,
+            (epf_params.iters, epf_params.sharp_lut, epf_params.channel_scale,
+             epf_params.pass0_sigma_scale, epf_params.pass2_sigma_scale,
+             epf_params.border_sad_mul) if epf_params else None,
+            tuple(
+                tuple(sorted((sel, m.tobytes()) for sel, m in mats.items()))
+                for mats in matrices3
+            ),
+            (self.height, self.width),
+        )
+
+        def make_fn(device=None):
+            from ..ops.vardct_pipeline import build_fused_pipeline_subsampled
+
+            lf_shapes_eff = tuple(
+                (ps[0] // 8, ps[1] // 8) for ps in plane_shapes
+            )
+            return build_fused_pipeline_subsampled(
+                plane_shapes, lf_shapes_eff, full_shape, entries3, matrices3,
+                tuple(float(q) for q in self.opsin.quant_bias),
+                float(self.opsin.quant_bias_numerator),
+                quantizer.global_scale, qm_scale, lf_scale,
+                gabor_weights=gabor_weights,
+                epf_params=epf_params,
+                sparse_coeff_n=tuple(sparse_ns),
+                crop=(self.height, self.width),
+                embed=embed,
+                device=device,
+            )
+
+        return key, make_fn, inputs
+
+    @traced("Dequant and transform (subsampled)")
+    def _run_fused_subsampled(self, hf_global: HfGlobal | None, device):
+        """Chroma-subsampled frames (do_ycbcr 4:2:0/4:2:2/4:4:0): ONE
+        program runs the three per-channel dequant + inverse transform
+        pipelines at their stored geometries, then the JPEG triangle
+        chroma upsample and the restoration filters
+        (jxl-render/src/vardct/mod.rs:48-385 subsampled path + image.rs:
+        448-486 upsample + render.rs filter order); the staged path when
+        a dense plan overflows. Output is [3, h, w] at full resolution
+        (still YCbCr); sets chroma_upsampled and filters_applied."""
+        out = self._run_program(self.fused_subsampled_program_parts,
+                                hf_global, device)
+        if out is None:
+            return self._run_staged(hf_global, device)
+        self.chroma_upsampled = True
+        return out
+
+    @traced("Dequant and transform (staged)")
+    def _run_staged(self, hf_global: HfGlobal | None, device):
+        """The staged path: whole-plane LF dequant (+ LF CfL and smoothing
+        on 4:4:4 frames), HF dequant against host-built multiplier maps,
+        HF CfL, then one batched inverse transform per transform type,
+        gathered from and scattered into the planes by host-built index
+        plans. Every host input (planes, maps, index plans) goes to
+        `device` in ONE copy. Returns [x, y, b] float32 planes at the
+        shifted rounded plane sizes on `device`; the render tail does the
+        chroma upsample and the filters."""
+        from ..ops.vardct_pipeline import (
+            adaptive_lf_smoothing,
+            cfl_lf,
+            cfl_plane,
+            dequant_plane,
+            transform_buckets,
+            upload_inputs,
+        )
+
+        if self.lf_override is not None:
+            raise JxlNotSupportedError(
+                "LF frames are not ported yet (ROADMAP Queue 1 item 9)")
+        header = self.header
+        quantizer = self.frame.lf_global.vardct.quantizer
+        lf_dequant = self.frame.lf_global.lf_dequant
+        corr = self.frame.lf_global.vardct.lf_chan_corr
+
+        with span("Staged inputs"):
+            dmaps = self.build_dequant_maps(
+                hf_global, header.x_qm_scale, header.b_qm_scale
+            )
+            plans = [self.build_transform_buckets(c) for c in range(3)]
+            host = [*self.lf_quant_planes, *self.coeff_planes, *dmaps]
+            for plan in plans:
+                for _sel, ci, li, _ in plan:
+                    host.extend([ci, li])
+            if not self.subsampled:
+                host.extend(self.build_cfl_maps())
+        with span("Upload"):
+            placed = upload_inputs(host, device)
+        lf_quant, coeff_q, dmap_t = placed[0:3], placed[3:6], placed[6:9]
+        idx_t = iter(placed[9:])
+        buckets = [
+            [(sel, ci, li, ci)
+             for (sel, _, _, _), ci, li in zip(plan, idx_t, idx_t)]
+            for plan in plans
+        ]
+
+        # LF: dequant (copy_lf_dequant, vardct/mod.rs:387-413)
+        scale_inv = quantizer.global_scale * quantizer.quant_lf
+        precision_scale = 1 << (9 - self.extra_precision)
+        lf_planes = [
+            lf_quant[c].to(torch.float32) * float(np.float32(
+                lf_dequant[c] * precision_scale / scale_inv))
+            for c in range(3)
+        ]
+        if not self.subsampled:
+            kx = (corr.base_correlation_x
+                  + (corr.x_factor_lf - 128) / corr.colour_factor)
+            kb = (corr.base_correlation_b
+                  + (corr.b_factor_lf - 128) / corr.colour_factor)
+            lf_x, lf_b = cfl_lf(lf_planes[0], lf_planes[1], lf_planes[2],
+                                kx, kb)
+            lf_planes = [lf_x, lf_planes[1], lf_b]
+        if not header.flags.skip_adaptive_lf_smoothing:
+            lf_scale = tuple(
+                np.float32(512.0 * lf_dequant[c] / scale_inv)
+                for c in range(3)
+            )
+            lf_planes = list(adaptive_lf_smoothing(
+                lf_planes[0], lf_planes[1], lf_planes[2], lf_scale
+            ))
+
+        # HF: dequant + CfL + transforms
+        coeffs = [
+            dequant_plane(coeff_q[c], dmap_t[c],
+                          float(self.opsin.quant_bias[c]),
+                          float(self.opsin.quant_bias_numerator))
+            for c in range(3)
+        ]
+        if not self.subsampled:
+            kx_map, kb_map = placed[-2:]
+            cx, cb = cfl_plane(coeffs[0], coeffs[1], coeffs[2],
+                               kx_map, kb_map)
+            coeffs = [cx, coeffs[1], cb]
+
+        out = []
+        for c in range(3):
+            out_plane = torch.zeros(self.plane_shapes[c], dtype=torch.float32,
+                                    device=device)
+            out.append(transform_buckets(coeffs[c], lf_planes[c], out_plane,
+                                         buckets[c]))
+        return out
+
+
+@traced("Render VarDCT")
+def decode_vardct_planes(state: VardctFrameState, hf_global, device) -> list:
+    """The device stage of one VarDCT frame: state.run_device_pipeline,
+    then each plane cropped to the frame sample size at its channel's
+    shift (none where the program upsampled the chroma already), as
+    jxl_oxide_tpu/render/vardct.py decode_vardct_frame crops."""
+    planes = state.run_device_pipeline(hf_global, device)
+    cropped = []
+    for c in range(3):
+        hs, vs = (0, 0) if state.chroma_upsampled else state.shifts[c]
+        w = _ceil_shift(state.width, hs)
+        h = _ceil_shift(state.height, vs)
+        p = planes[c]
+        cropped.append(p if tuple(p.shape) == (h, w) else p[:h, :w])
+    return cropped
 
 
 def _decode_lf_groups_batch(frame, state, lf_global, lf_jobs, mlf_groups):

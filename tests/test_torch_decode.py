@@ -1,8 +1,10 @@
 """End to end through the port's entry point,
 JxlImage.from_bytes(data, device="cpu").render_frame(0).to_u8(), against
 jxl_oxide_tpu: within 1 LSB on the parity streams and on the committed
-fixtures. Streams outside the slice's envelope raise
-JxlNotSupportedError, and with no device= the port wants CUDA."""
+fixtures. Streams outside the port's envelope raise
+JxlNotSupportedError, and with no device= the port wants CUDA. The
+chroma-subsampled and staged paths have their own files
+(test_torch_subsampled.py, test_torch_staged.py)."""
 
 import numpy as np
 import pytest
@@ -52,17 +54,8 @@ def _modular():
         [rng.integers(0, 256, (32, 32)) for _ in range(3)], bit_depth=8)
 
 
-def _vardct_420():
-    from encoder_vardct import encode_jxl_vardct_420
-
-    from jxl_oxide_tpu.models.vardct import jpeg_shifts
-
-    rng = np.random.default_rng(1)
-    coeff = [np.zeros((64 >> vs, 64 >> hs), np.int64)
-             for hs, vs in jpeg_shifts((0, 1, 0))]
-    lf = [rng.integers(-30, 31, (c.shape[0] // 8, c.shape[1] // 8))
-          for c in coeff]
-    return encode_jxl_vardct_420(64, 64, coeff, lf, 4096)
+def _lf_frame():
+    return tp.vardct_stream(64, 64, 1, global_scale=65536, use_lf_frame=True)
 
 
 def _alpha():
@@ -77,7 +70,7 @@ def _orientation():
 
 @pytest.mark.parametrize("make,item", [
     (_modular, "item 11"),
-    (_vardct_420, "item 7"),
+    (_lf_frame, "item 9"),
     (_alpha, "item 17"),
     (_orientation, "item 16"),
 ])

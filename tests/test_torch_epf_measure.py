@@ -1,7 +1,7 @@
 """The EPF measurement helpers (jxl_oxide_tpu_torch/ops/cuda/
 epf_measure.py) that chip_smoke.py and tools/epf_variants.py time the
-kernel with: their inputs, the bound and the cold input sets. The timing
-itself needs the card."""
+kernel with: their inputs, the bound, the cold input sets and the capture
+of a decode's passes. The timing itself needs the card."""
 
 import numpy as np
 import pytest
@@ -48,3 +48,29 @@ def test_cold_sets_move_twice_the_l2_between_uses(hw, copies):
     assert sets[0][0] is planes
     ptrs = {t.data_ptr() for s in sets for t in s}
     assert len(ptrs) == 3 * copies
+
+
+@pytest.mark.parametrize("make,staged", [
+    (lambda: tp.vardct_stream(64, 72, 2, gabor=True, epf_iters=2), False),
+    (lambda: tp.ycbcr_stream(64, 64, tp.CHROMA["420"], seed=1, epf_iters=3),
+     False),
+    (lambda: tp.overflow_stream(epf_iters=2), True),
+], ids=["fused_444", "fused_420", "staged"])
+def test_capture_sees_every_pass_of_every_path(make, staged, monkeypatch):
+    """capture_decode keeps the inputs of each EPF pass whichever program
+    runs it (the staged path's passes run in the render tail), in order,
+    and decodes as an uncaptured decode does."""
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.render import vardct as tvmod
+
+    if staged:
+        monkeypatch.setattr(tvmod, "DENSE_PLAN_MAX_ENTRIES", 0)
+    data = make()
+    u8, captured = em.capture_decode(data, device="cpu")
+    np.testing.assert_array_equal(u8, tp.torch_u8(data))
+    img = JxlImage.from_bytes(data, device="cpu")
+    iters = img._frames[0].header.restoration_filter.epf.iters
+    assert [c[2] for c in captured] == [0, 1, 2][3 - iters:]
+    for planes, sigma, *_ in captured:
+        assert tuple(planes.shape) == (3, img.height, img.width)
+        assert tuple(sigma.shape) == (img.height, img.width)

@@ -35,3 +35,29 @@ def test_fixtures_cover_the_main_path():
                 T.AFV0, T.AFV1, T.AFV2, T.AFV3}
     assert specials <= info["mixed_512"][3]
     assert len(info["mixed_512"][3]) >= 12
+
+
+@pytest.mark.parametrize("name,ups,size,path", [
+    ("ycbcr420_1024", (0, 1, 0), (1024, 1024), "subsampled"),
+    ("ycbcr422_256", (0, 2, 0), (256, 256), "subsampled"),
+    ("staged_1030", (0, 0, 0), (1024, 1030), "staged"),
+])
+def test_fixtures_take_their_paths(name, ups, size, path):
+    """ycbcr420_1024 is bench.py's vardct_420 and ycbcr422_256 a 4:2:2
+    stream, both through the fused subsampled program; staged_1030's plan
+    overflows, so it takes the staged path, whose EPF runs at W = 1030.
+    All three carry gaborish and 2 EPF passes."""
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.render.vardct import decode_vardct_planes
+
+    img = JxlImage.from_bytes(tp.fixture(name)[0], device="cpu")
+    header = img._frames[0].header
+    assert tuple(header.jpeg_upsampling) == ups
+    assert header.do_ycbcr == (path == "subsampled")
+    assert (img.height, img.width) == size
+    rf = header.restoration_filter
+    assert rf.gab.enabled and rf.epf.iters == 2
+    host = img._host_stage(0)
+    decode_vardct_planes(host.state, host.hf_global, "cpu")
+    assert host.state.filters_applied == (path == "subsampled")
+    assert host.state.chroma_upsampled == (path == "subsampled")

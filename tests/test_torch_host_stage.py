@@ -37,7 +37,7 @@ def test_fused_inputs_bit_identical(name, upload, monkeypatch):
         assert not isinstance(tin[0], tuple)
 
 
-@pytest.mark.parametrize("name", tp.FIXTURES)
+@pytest.mark.parametrize("name", tp.FUSED_FIXTURES)
 def test_fixture_inputs_bit_identical(name):
     data, _ = tp.fixture(name)
     _, _, jin = tp.jax_parts(data)

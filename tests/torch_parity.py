@@ -17,7 +17,12 @@ from jxl_oxide_tpu_torch.models.vardct import TransformType as T
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTDATA = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata")
-FIXTURES = ("flagship_1024", "epf3_512", "mixed_512")
+FIXTURES = ("flagship_1024", "epf3_512", "mixed_512", "ycbcr420_1024",
+            "ycbcr422_256", "staged_1030")
+# the fixtures that take the fused 4:4:4 program
+FUSED_FIXTURES = FIXTURES[:3]
+# jpeg_upsampling of the chroma layouts 4:2:0, 4:2:2 and 4:4:0
+CHROMA = {"420": (0, 1, 0), "422": (0, 2, 0), "440": (0, 3, 0)}
 for _p in (os.path.join(REPO, "tools"), REPO):
     if _p not in sys.path:
         sys.path.insert(0, _p)
@@ -47,10 +52,10 @@ def tiled_stream(h: int, w: int, seed: int, types, cfl: bool = False,
     from test_parallel import _random_varblock_grid
 
     rng = np.random.default_rng(seed)
-    bh, bw = h // 8, w // 8
+    bh, bw = -(-h // 8), -(-w // 8)
     sel, mul = _random_varblock_grid(bh, bw, rng, list(types))
-    coeff = rng.integers(-15, 16, (3, h, w)).astype(np.int64)
-    coeff[rng.random((3, h, w)) < 0.9] = 0
+    coeff = rng.integers(-15, 16, (3, 8 * bh, 8 * bw)).astype(np.int64)
+    coeff[rng.random(coeff.shape) < 0.9] = 0
     lf_q = rng.integers(-60, 61, (3, bh, bw)).astype(np.int64)
     if cfl:
         h64, w64 = -(-h // 64), -(-w // 64)
@@ -69,6 +74,24 @@ def tiled_stream(h: int, w: int, seed: int, types, cfl: bool = False,
 MIXED = [T.DCT8, T.DCT2, T.DCT4, T.HORNUSS, T.DCT16, T.DCT32, T.DCT16X8,
          T.DCT8X16, T.DCT4X8, T.DCT8X4, T.AFV0, T.AFV1, T.AFV2, T.AFV3,
          T.DCT32X16, T.DCT8X32]
+
+def ycbcr_stream(h: int, w: int, ups, seed: int = 0, density: float = 0.15,
+                 **kw) -> bytes:
+    """A chroma-subsampled YCbCr DCT8 stream: bench.py's vardct_420
+    recipe at any size and layout (tools/make_torch_port_fixtures.py)."""
+    from make_torch_port_fixtures import ycbcr_stream as make
+
+    return make(h, w, ups, seed, density, **kw)
+
+
+def overflow_stream(h: int = 256, w: int = 262, seed: int = 7,
+                    **kw) -> bytes:
+    """A multi-group stream of MIXED and the 64-px transforms, the
+    staged_1030 fixture's types. Its dense plan has about 40 entries at
+    256x262: tests that need the staged path lower the cap."""
+    return tiled_stream(h, w, seed, types=MIXED + [T.DCT64, T.DCT64X32,
+                                                   T.DCT32X64], **kw)
+
 
 # the parity streams, made on demand: (xyb or not) x (filters off, gabor +
 # EPF 1-2, EPF 0-2) x (constant or per-tile CfL) x (LF smoothing on/off)
@@ -104,23 +127,34 @@ def fixture(name: str) -> tuple[bytes, np.ndarray]:
     return data, np.load(os.path.join(TESTDATA, f"{name}.npz"))["u8"]
 
 
-def jax_parts(data: bytes, rect=None):
-    """(key, make_fn, inputs) of the JAX package's fused program, from its
-    own host stage (serving._host_stage_fast)."""
+def jax_host(data: bytes):
+    """(VardctFrameState, HfGlobal) of the JAX package's host stage
+    (serving._host_stage_fast)."""
     from jxl_oxide_tpu import JxlImage
     from jxl_oxide_tpu.serving import _host_stage_fast
 
     state, hf_global, _, _ = _host_stage_fast(JxlImage.from_bytes(data), 0)
+    return state, hf_global
+
+
+def torch_host(data: bytes):
+    """(VardctFrameState, HfGlobal) of the port's host stage, on the CPU."""
+    from jxl_oxide_tpu_torch import JxlImage
+
+    host = JxlImage.from_bytes(data, device="cpu")._host_stage(0)
+    return host.state, host.hf_global
+
+
+def jax_parts(data: bytes, rect=None):
+    """(key, make_fn, inputs) of the JAX package's fused program."""
+    state, hf_global = jax_host(data)
     return state.fused_program_parts(hf_global, rect=rect)
 
 
 def torch_parts(data: bytes, rect=None):
-    """(key, make_fn, inputs) of the port's fused program, from the port's
-    host stage, on the CPU."""
-    from jxl_oxide_tpu_torch import JxlImage
-
-    host = JxlImage.from_bytes(data, device="cpu")._host_stage(0)
-    return host.state.fused_program_parts(host.hf_global, rect=rect)
+    """(key, make_fn, inputs) of the port's fused program."""
+    state, hf_global = torch_host(data)
+    return state.fused_program_parts(hf_global, rect=rect)
 
 
 def jax_u8(data: bytes) -> np.ndarray:

@@ -42,6 +42,9 @@ def smooth_rgb(h, w, seed=0, block=8):
 MIXED_TYPES = ("DCT8", "DCT2", "DCT4", "HORNUSS", "DCT16", "DCT32",
                "DCT16X8", "DCT8X16", "DCT4X8", "DCT8X4", "AFV0", "AFV1",
                "AFV2", "AFV3", "DCT32X16", "DCT8X32")
+# with the 64-px transforms added, a 1024x1030 frame's dense plan has
+# more than DENSE_PLAN_MAX_ENTRIES (96) entries: the staged path
+STAGED_TYPES = MIXED_TYPES + ("DCT64", "DCT64X32", "DCT32X64")
 
 
 def mixed_512():
@@ -69,6 +72,68 @@ def mixed_512():
                                    epf_iters=2, sharpness=sharp)
 
 
+def ycbcr_stream(h, w, ups, seed, density, **kw):
+    """bench.py's vardct_420 recipe (bench.py:87-111) at any size and
+    chroma layout: all DCT8, per-channel coefficient planes at each
+    channel's stored size with `density` non-zero, random LF. Frames of
+    one 256-px group take the single-group encoder."""
+    from encoder_vardct import encode_jxl_vardct_420, encode_jxl_vardct_tiled
+
+    from jxl_oxide_tpu.models.vardct import TransformType as T
+    from jxl_oxide_tpu.models.vardct import jpeg_shifts
+
+    rng = np.random.default_rng(seed)
+    bh, bw = h // 8, w // 8
+    sel = np.full((bh, bw), int(T.DCT8), dtype=np.int64)
+    mul = np.ones((bh, bw), dtype=np.int64)
+    coeff, lf = [], []
+    for hs, vs in jpeg_shifts(ups):
+        sh = (h >> vs, w >> hs)
+        cp = np.zeros(sh, dtype=np.int64)
+        m = rng.random(sh) < density
+        cp[m] = rng.integers(-10, 11, int(m.sum()))
+        coeff.append(cp)
+        lf.append(rng.integers(-60, 61, (bh >> vs, bw >> hs)).astype(np.int64))
+    if h <= 256 and w <= 256:
+        return encode_jxl_vardct_420(h, w, coeff, lf, jpeg_upsampling=ups,
+                                     **kw)
+    return encode_jxl_vardct_tiled(h, w, sel, mul, coeff, lf,
+                                   jpeg_upsampling=ups, **kw)
+
+
+def staged_1030():
+    """A 1024x1030 (HxW) multi-group stream whose dense plan overflows:
+    random varblocks of STAGED_TYPES, about 2 % non-zero coefficients,
+    gaborish and 2 EPF passes over a random sharpness grid. The non-zero
+    coefficients lie in the low-frequency quarter (each side) of their
+    varblock, as a natural image's do: the in-repo encoder codes a block
+    up to its last non-zero coefficient, so uniformly spread ones would
+    cost whole 64x64 blocks and a stream over 2 MB. W % 8 != 0, and the
+    staged path filters at the sample size, so its EPF passes run on
+    planes with W % 4 != 0."""
+    from encoder_vardct import encode_jxl_vardct_tiled
+    from test_parallel import _random_varblock_grid
+
+    from jxl_oxide_tpu.models.vardct import TransformType as T
+
+    rng = np.random.default_rng(6)
+    h, w = 1024, 1030
+    bh, bw = -(-h // 8), -(-w // 8)
+    sel, mul = _random_varblock_grid(
+        bh, bw, rng, [getattr(T, n) for n in STAGED_TYPES]
+    )
+    low = np.zeros((8 * bh, 8 * bw), dtype=bool)
+    for y, x in zip(*np.nonzero(sel >= 0)):
+        tw, th = T.SELECT_SIZE[int(sel[y, x])]
+        low[8 * y : 8 * y + 2 * th, 8 * x : 8 * x + 2 * tw] = True
+    coeff = rng.integers(-15, 16, (3, 8 * bh, 8 * bw)).astype(np.int64)
+    coeff[~(low & (rng.random(coeff.shape) < 0.32))] = 0
+    lf_q = rng.integers(-60, 61, (3, bh, bw)).astype(np.int64)
+    sharp = rng.integers(0, 8, (bh, bw)).astype(np.int64)
+    return encode_jxl_vardct_tiled(h, w, sel, mul, coeff, lf_q, gabor=True,
+                                   epf_iters=2, sharpness=sharp)
+
+
 def fixtures() -> dict:
     from encoder_vardct import encode_jxl_vardct
 
@@ -79,6 +144,13 @@ def fixtures() -> dict:
         # bench.py vardct_epf3: 3 EPF passes, step 0 included
         "epf3_512": encode_jxl_vardct(smooth_rgb(512, 512, 2), epf_iters=3),
         "mixed_512": mixed_512(),
+        # bench.py vardct_420 (bench.py:87-111), unchanged: 4:2:0 at the
+        # flagship's geometry, 20 % non-zero, gaborish + 2 EPF passes
+        "ycbcr420_1024": ycbcr_stream(1024, 1024, (0, 1, 0), 4, 0.2,
+                                      gabor=True, epf_iters=2),
+        "ycbcr422_256": ycbcr_stream(256, 256, (0, 2, 0), 8, 0.2,
+                                     gabor=True, epf_iters=2),
+        "staged_1030": staged_1030(),
     }
 
 
