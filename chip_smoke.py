@@ -6,15 +6,24 @@ NVIDIA GPU.
 
 Phases, each fatal (non-zero exit, no "ok" line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the native host library (g++) and the EPF kernel (nvcc) from
-     the checkout, in parallel, timed; ptxas's registers and spills of
-     each EPF step (a spill is fatal) and the launch geometry;
+  2. build the native host library (g++), the EPF kernel and the squeeze
+     kernel (nvcc) from the checkout, in parallel, timed; ptxas's
+     registers and spills of each EPF step and each squeeze kernel (a
+     spill is fatal) and the EPF launch geometry;
   3. the EPF kernel against its plain torch version on the card, steps
      0, 1 and 2, max |diff| <= 2e-5, on shapes that take the TMA copy and
      the cp.async copy (W % 4 != 0), fit in one tile, have more tiles than
      resident blocks, or have H < 3 (rows reflect more than once). At
      3x1024^2, 3x2048^2 and 3x1000x1030 (cp.async) each pass is timed on
      the card's clock (see `time_pass`), warm and cold, beside its bound;
+  3b. the squeeze kernel against its plain torch version on the card, bit
+     for bit, horizontal and vertical, on odd and even lengths, no
+     residual, one line, 2048^2, and samples at the INT32 extremes; then a
+     default squeeze pyramid of a 2048^2 plane through the port's device
+     tail and through the host's C++ Squeeze.inverse, bit for bit, timed
+     on the card's clock (a CUDA graph replayed between CUDA events, warm
+     and cold) in Msamples/s beside the host's single-thread rate and the
+     byte bound;
   4. the decode paths: decode the committed fixtures through
      JxlImage.from_bytes(data).render_frame(0).to_u8() on cuda, each
      within 1 LSB of the committed jxl_oxide_tpu reference, with the EPF
@@ -22,14 +31,18 @@ Phases, each fatal (non-zero exit, no "ok" line):
      the fused 4:4:4 program (flagship_1024, the main path; epf3_512;
      mixed_512), the fused chroma-subsampled program (ycbcr420_1024,
      bench.py's vardct_420; ycbcr422_256) and the staged path with its
-     render tail (staged_1030, W = 1030). Host-stage ms, device-stage ms
-     and end-to-end MP/s, warm, median of 5, for each. For one fixture of
-     each path (TIMED) the EPF inputs are captured in the counted run,
-     the kernel is held against the plain version on them and timed on
-     them as in phase 3, and one traced decode is broken down by the
-     port's spans and by kernel (torch.profiler).
+     render tail (staged_1030, W = 1030), and lossless Modular with the
+     device tail (modular_1024: one squeeze launch, 2 EPF passes) and with
+     the host tail (modular_xyb_512, XYB), each decode's squeeze launches
+     counted too. Host-stage ms, device-stage ms and end-to-end MP/s,
+     warm, median of 5, for each. For one fixture of each path (TIMED) the
+     EPF and squeeze inputs are captured in the counted run, the kernels
+     are held against the plain versions on them and timed on them as in
+     phase 3, and one traced decode is broken down by the port's spans and
+     by kernel (torch.profiler).
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
+The squeeze kernel's timing helpers are here (`squeeze_device_ms`).
 It prints one {"kernels": [...]} JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. It imports neither JAX nor
 jxl_oxide_tpu, and exits non-zero without CUDA or without the package.
@@ -37,6 +50,7 @@ jxl_oxide_tpu, and exits non-zero without CUDA or without the package.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -51,11 +65,33 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 EPF_ATOL = 2e-5
 FIXTURES = ("flagship_1024", "epf3_512", "mixed_512", "ycbcr420_1024",
-            "ycbcr422_256", "staged_1030")
+            "ycbcr422_256", "staged_1030", "modular_1024", "modular_xyb_512")
 MAIN_PATH = "flagship_1024"
+# the Modular path's fixture: its squeeze launch is the squeeze kernel's
+# main-path launch
+MODULAR_PATH = "modular_1024"
+# squeeze launches of each decode (the device tail engages at 2^20 samples)
+SQUEEZES = {"modular_1024": 1}
 # one fixture per decode path: fused 4:4:4, fused subsampled, staged (whose
-# EPF runs at the sample width 1030, on the kernel's cp.async copy)
-TIMED = ("flagship_1024", "ycbcr420_1024", "staged_1030")
+# EPF runs at the sample width 1030, on the kernel's cp.async copy), Modular
+TIMED = ("flagship_1024", "ycbcr420_1024", "staged_1030", "modular_1024")
+# (lines, n) of the squeeze kernel checks: n odd and even, no residual
+# (n = 1), one line (a row for the horizontal kernel, a column for the
+# vertical one), partial blocks and tiles, 2048^2
+SQUEEZE_SHAPES = ((1, 2), (3, 3), (70, 1), (33, 64), (40, 65), (1, 131),
+                  (2048, 2048))
+I32_EDGES = (-2**31, -2**31 + 1, -2**30, -13, -1, 0, 1, 12, 2**30,
+             2**31 - 2, 2**31 - 1)
+HBM_BYTES_PER_S = 3.35e12
+# one H100 SXM's float32 rate outside the tensor cores (NVIDIA's data
+# sheet gives no integer-ALU rate): the squeeze's int32 operations are
+# counted against it
+ALU_OPS_PER_S = 67e12
+# int32 operations per squeeze step (two outputs) in the plain formula
+# (ops/modular_tail.py): the tendency's 8 for its differences and 4a-3c-b,
+# 11 for each of its two candidate quotients, 8 for the case test and
+# select; the step's sum, halving (4) and two sums
+SQUEEZE_OPS_PER_STEP = 45
 # (shape, timed): TMA and cp.async copies, one tile and many, H < 3
 KERNEL_SHAPES = (
     ((3, 1024, 1024), True),
@@ -146,8 +182,32 @@ def pass_line(row: dict) -> str:
             f"{row['host_us']:.1f} us/call, plain {row['plain_ms']:.4f} ms")
 
 
+def check_ptxas(name: str, label) -> None:
+    """Print each kernel's registers and spills from the ptxas output of
+    library `name`; a spill is fatal. `label(entry)` names a kernel by its
+    mangled entry."""
+    from jxl_oxide_tpu_torch.ops.cuda import build
+
+    with open(os.path.join(build.BUILD_DIR, f"{name}.ptxas.txt")) as f:
+        ptxas = f.read()
+    kernel = None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = label(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            log(f"ptxas {kernel}: {line.strip()}")
+            if int(m.group(1)) or int(m.group(2)):
+                raise RuntimeError(f"{kernel} spills registers")
+        if "registers" in line:
+            log(f"ptxas {kernel}: {line.strip()}")
+
+
 def phase_build() -> None:
-    """Build the native host library and the EPF kernel in parallel."""
+    """Build the native host library and the two kernel libraries in
+    parallel, one compiler each."""
     from jxl_oxide_tpu_torch import native
     from jxl_oxide_tpu_torch.ops.cuda import build
 
@@ -162,7 +222,8 @@ def phase_build() -> None:
         times[name] = time.perf_counter() - t0
 
     jobs = [("native g++", native.get_lib),
-            ("epf nvcc", lambda: build.load("epf"))]
+            ("epf nvcc", lambda: build.load("epf")),
+            ("modular_squeeze nvcc", lambda: build.load("modular_squeeze"))]
     threads = [threading.Thread(target=run, args=job) for job in jobs]
     for t in threads:
         t.start()
@@ -174,21 +235,17 @@ def phase_build() -> None:
         raise RuntimeError(f"build failed: {errors}")
     if not native.available():
         raise RuntimeError("native host library did not load")
-    with open(os.path.join(build.BUILD_DIR, "epf.ptxas.txt")) as f:
-        ptxas = f.read()
-    kernel = None
-    for line in ptxas.splitlines():
-        m = re.search(r"epf_kernelILi(\d)E", line)
-        if m and "Compiling entry" in line:
-            kernel = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            log(f"ptxas step {kernel}: {line.strip()}")
-            if int(m.group(1)) or int(m.group(2)):
-                raise RuntimeError(f"EPF step {kernel} spills registers")
-        if "registers" in line:
-            log(f"ptxas step {kernel}: {line.strip()}")
+
+    def epf_step(entry):
+        m = re.search(r"epf_kernelILi(\d)E", entry)
+        return f"epf step {m.group(1)}" if m else entry
+
+    def squeeze_kernel(entry):
+        m = re.search(r"inv_squeeze_[hv]_kernel", entry)
+        return m.group(0) if m else entry
+
+    check_ptxas("epf", epf_step)
+    check_ptxas("modular_squeeze", squeeze_kernel)
     lib = build.load("epf")
     for step in range(3):
         th, smem, res = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -248,6 +305,215 @@ def phase_kernel(device) -> float:
                     time_pass(planes, sigma, step, cs, sm, bsm))
             log(line)
     return worst
+
+
+@contextlib.contextmanager
+def watching(module, name: str, see):
+    """Within the block, each call of module.name first shows its
+    arguments to see(*args). The decode looks each kernel's wrapper up on
+    its module at every call, so this sees every launch of a decode; the
+    wrapper still runs, and still counts."""
+    fn = getattr(module, name)
+
+    def watched(*args):
+        see(*args)
+        return fn(*args)
+
+    setattr(module, name, watched)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def squeeze_bytes(avg, res) -> int:
+    """Bytes one squeeze must move: avg and the residual read once, the
+    output (as many samples as both) written once, int32."""
+    return 2 * 4 * (avg.numel() + res.numel())
+
+
+def squeeze_bound_ms(avg, res) -> tuple[float, str]:
+    """Least time of one squeeze on these inputs: bytes over the HBM rate
+    against its int32 operations over the ALU rate."""
+    byte_ms = squeeze_bytes(avg, res) / HBM_BYTES_PER_S * 1e3
+    op_ms = SQUEEZE_OPS_PER_STEP * res.numel() / ALU_OPS_PER_S * 1e3
+    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
+
+
+def graph_ms(run, replays: int = 5, flush=None) -> float:
+    """Device ms of one call of `run` on the card's clock: `run` is
+    captured once in a CUDA graph and replayed between CUDA events, so no
+    host work falls in the window. With `flush`, each replay is timed on
+    its own after `flush()` has pushed the inputs out of the L2 (cold)."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays if flush else 1):
+        if flush:
+            flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(1 if flush else replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / (1 if flush else replays))
+    return statistics.fmean(times)
+
+
+def l2_flush():
+    """A function that writes 256 MB on the card, five times the L2."""
+    import torch
+
+    scratch = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+    return lambda: scratch.fill_(1)
+
+
+def squeeze_device_ms(avg, res, horizontal: bool, cold: bool,
+                      launches: int = 20) -> float:
+    """Device ms of one launch of the squeeze kernel on these inputs, on
+    the card's clock (not counted): warm, `launches` launches on one set
+    in a CUDA graph; cold, the same cycling over enough copies that between
+    two uses of one copy the others move twice the 50 MB L2."""
+    import math
+
+    import torch
+
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
+
+    fn = sq._fn()
+    copies = 1 + math.ceil(2 * 50e6 / squeeze_bytes(avg, res)) if cold else 1
+    shape = (avg.shape[0], avg.shape[1] + res.shape[1]) if horizontal else (
+        avg.shape[0] + res.shape[0], avg.shape[1])
+    sets = [(avg.clone(), res.clone(), torch.empty(shape, dtype=torch.int32,
+                                                   device=avg.device))
+            for _ in range(copies)]
+
+    def run():
+        for i in range(launches):
+            sq.launch(fn, *sets[i % copies], horizontal)
+
+    return graph_ms(run) / launches
+
+
+def squeeze_plain_ms(avg, res, horizontal: bool) -> float:
+    from jxl_oxide_tpu_torch.ops import modular_tail as mt
+
+    plain = mt.inv_squeeze_h if horizontal else mt.inv_squeeze_v
+    return cuda_ms(lambda: plain(avg, res), 2, warmup=1)
+
+
+def check_squeeze(avg, res, horizontal: bool) -> None:
+    """The kernel against the plain version on one input, fatal unless
+    equal (integer arithmetic, bit for bit)."""
+    import torch
+
+    from jxl_oxide_tpu_torch.ops import modular_tail as mt
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze import inv_squeeze_cuda
+
+    got = inv_squeeze_cuda(avg, res, horizontal)
+    want = (mt.inv_squeeze_h if horizontal else mt.inv_squeeze_v)(avg, res)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        diff = (got.long() - want.long()).abs().max().item() if (
+            got.shape == want.shape) else "shape"
+        raise AssertionError(
+            f"squeeze kernel disagrees ({'h' if horizontal else 'v'}, "
+            f"{tuple(avg.shape)}, {tuple(res.shape)}): {diff}")
+
+
+def squeeze_pyramid(size: int):
+    """(squeeze, slots, parent): the default squeeze pyramid of one random
+    size x size plane (tools/measure_modular_device.py build_squeeze_case),
+    in the port's own host structures."""
+    from jxl_oxide_tpu_torch.models import modular_transform as mtr
+
+    rng = np.random.default_rng(0)
+    parent = rng.integers(-(1 << 10), 1 << 10, (size, size)).astype(np.int32)
+    sq = mtr.Squeeze()
+    sq.set_default_params([mtr.ChannelInfo(size, size)], 0)
+    slots = [mtr.Slot(parent)]
+    sq.check([mtr.ChannelInfo(size, size)], 0, slots, [])
+    return sq, slots, parent
+
+
+def phase_squeeze(device) -> dict:
+    """The squeeze kernel against its plain version, then the 2048^2
+    pyramid against the host tail, timed; returns the pyramid's row."""
+    import torch
+
+    from jxl_oxide_tpu_torch.models.modular import inverse_transforms_device
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze as kernel
+
+    rng = np.random.default_rng(0)
+    edges = np.array(I32_EDGES, dtype=np.int32)
+    for lines, n in SQUEEZE_SHAPES:
+        na, nr = (n + 1) // 2, n // 2
+        for horizontal in (True, False):
+            shapes = (((lines, na), (lines, nr)) if horizontal
+                      else ((na, lines), (nr, lines)))
+            for extremes in (False, True):
+                if extremes:
+                    avg, res = (rng.choice(edges, s) for s in shapes)
+                else:
+                    avg, res = (rng.integers(-4096, 4096, s).astype(np.int32)
+                                for s in shapes)
+                check_squeeze(torch.from_numpy(avg).to(device),
+                              torch.from_numpy(res).to(device), horizontal)
+            log(f"squeeze {'h' if horizontal else 'v'} lines {lines} n {n}: "
+                "equal to plain (random and INT32 extremes)")
+
+    size = 2048
+    sq, slots, _ = squeeze_pyramid(size)
+    planes = [torch.from_numpy(np.ascontiguousarray(s.arr)).to(device)
+              for s in slots]
+    # bytes of the chain: each step reads its avg and residual and writes
+    # its output once
+    moved = []
+    with watching(kernel, "inv_squeeze_cuda",
+                  lambda avg, res, _: moved.append(squeeze_bytes(avg, res))):
+        (got,) = inverse_transforms_device([sq], planes, 16)
+    bytes_total = sum(moved)
+    host_s = []
+    for _ in range(3):
+        sq_host, slots, parent = squeeze_pyramid(size)
+        t0 = time.perf_counter()
+        sq_host.inverse(slots, 16)
+        host_s.append(time.perf_counter() - t0)
+    if not torch.equal(got.cpu(), torch.from_numpy(parent)):
+        raise AssertionError("squeeze pyramid: device tail differs from the "
+                             "host tail")
+
+    def run():
+        inverse_transforms_device([sq], planes, 16)
+
+    warm = graph_ms(run)
+    cold = graph_ms(run, flush=l2_flush())
+    row = {
+        "size": size,
+        "steps": len(sq.sp),
+        "warm_ms": warm,
+        "cold_ms": cold,
+        "device_msps": size * size / warm / 1e3,
+        "device_msps_cold": size * size / cold / 1e3,
+        "host_msps_1t": size * size / min(host_s) / 1e6,
+        "bound_ms": bytes_total / HBM_BYTES_PER_S * 1e3,
+    }
+    log(f"squeeze pyramid {size}^2 ({row['steps']} steps): equal to the host "
+        f"tail; device warm {warm:.4f} ms ({row['device_msps']:.1f} "
+        f"Msamples/s), cold {cold:.4f} ms ({row['device_msps_cold']:.1f}), "
+        f"host C++ 1 thread {min(host_s) * 1e3:.2f} ms "
+        f"({row['host_msps_1t']:.1f} Msamples/s), byte bound "
+        f"{row['bound_ms']:.4f} ms ({bytes_total} B)")
+    return row
 
 
 def profile_decode(name: str, data: bytes, top: int = 8) -> None:
@@ -314,17 +580,47 @@ def epf_passes(data: bytes) -> int:
     return epf.iters if epf.enabled else 0
 
 
-def phase_decode() -> dict:
-    """Every fixture through the entry point; returns the kernel report,
-    the main path's numbers with each timed path's beside them."""
+def squeeze_row(name: str, captured) -> dict:
+    """The squeeze kernel on the launches captured from one decode: held
+    against the plain version, timed warm and cold, per launch (mean over
+    the decode's launches)."""
+    rows = []
+    for avg, res, horizontal in captured:
+        check_squeeze(avg, res, horizontal)
+        bound, by = squeeze_bound_ms(avg, res)
+        row = {
+            "ms": squeeze_device_ms(avg, res, horizontal, cold=False),
+            "cold_ms": squeeze_device_ms(avg, res, horizontal, cold=True),
+            "plain_ms": squeeze_plain_ms(avg, res, horizontal),
+            "bound_ms": bound,
+            "bound_by": by,
+        }
+        rows.append(row)
+        log(f"{name} squeeze {'h' if horizontal else 'v'} avg "
+            f"{tuple(avg.shape)} residual {tuple(res.shape)}: equal to plain, "
+            f"device warm {row['ms']:.4f} ms, cold {row['cold_ms']:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}), cold share of bound "
+            f"{bound / row['cold_ms']:.3f}, plain {row['plain_ms']:.2f} ms")
+    out = {k: statistics.fmean(r[k] for r in rows)
+           for k in ("ms", "cold_ms", "plain_ms", "bound_ms")}
+    out["bound_by"] = rows[0]["bound_by"]
+    out["cold_share_of_bound"] = out["bound_ms"] / out["cold_ms"]
+    return out
+
+
+def phase_decode() -> tuple[dict, dict]:
+    """Every fixture through the entry point; returns the EPF kernel's
+    report (the main path's numbers with each timed path's beside them)
+    and the squeeze kernel's rows of the timed paths that launch it."""
     import torch
 
     from jxl_oxide_tpu_torch import JxlImage
     from jxl_oxide_tpu_torch.ops.cuda import epf_measure as em
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
     from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
 
     tdir = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata")
-    paths = {}
+    paths, squeeze_paths = {}, {}
     for name in FIXTURES:
         with open(os.path.join(tdir, f"{name}.jxl"), "rb") as f:
             data = f.read()
@@ -332,17 +628,26 @@ def phase_decode() -> dict:
         passes = epf_passes(data)
 
         # the counted run: launches of this decode only
+        squeezes = []
         epf_step_cuda.launches = 0
-        u8, captured = em.capture_decode(data)
+        sq.inv_squeeze_cuda.launches = 0
+        with watching(sq, "inv_squeeze_cuda", lambda a, r, h: squeezes.append(
+                (a.clone(), r.clone(), h))):
+            u8, captured = em.capture_decode(data)
         launches = epf_step_cuda.launches
+        squeeze_launches = sq.inv_squeeze_cuda.launches
         diff = int(np.abs(u8.astype(np.int32) - ref.astype(np.int32)).max())
         log(f"{name}: {u8.shape}, max |u8 - reference| {diff}, EPF launches "
-            f"{launches} (passes {passes})")
+            f"{launches} (passes {passes}), squeeze launches "
+            f"{squeeze_launches}")
         if u8.shape != ref.shape or diff > 1:
             raise AssertionError(f"{name}: decode differs from reference")
         if launches != passes:
             raise AssertionError(f"{name}: {launches} EPF launches, "
                                  f"{passes} passes")
+        if squeeze_launches != SQUEEZES.get(name, 0):
+            raise AssertionError(f"{name}: {squeeze_launches} squeeze "
+                                 f"launches, {SQUEEZES.get(name, 0)} wanted")
 
         # warm timings, median of 5
         host_ms, dev_ms, e2e_s = [], [], []
@@ -396,6 +701,9 @@ def phase_decode() -> dict:
                 "bound_by": max(set(bys), key=bys.count),
                 "cold_share_of_bound": mean("bound_ms") / mean("cold"),
             }
+            if squeezes:
+                squeeze_paths[name] = {"launches": squeeze_launches,
+                                       **squeeze_row(name, squeezes)}
     main_path = paths[MAIN_PATH]
     return {
         "name": "epf_step",
@@ -406,7 +714,7 @@ def phase_decode() -> dict:
         "max_abs_err": max(p["max_abs_err"] for p in paths.values()),
         "library_ms": None,
         "paths": paths,
-    }
+    }, squeeze_paths
 
 
 def main() -> int:
@@ -433,10 +741,22 @@ def main() -> int:
     phase_build()
     worst = phase_kernel(device)
     log(f"EPF kernel vs plain: worst max|diff| {worst:.3g} (atol {EPF_ATOL})")
-    report = phase_decode()
+    pyramid = phase_squeeze(device)
+    report, squeeze_paths = phase_decode()
     report["max_abs_err"] = max(report["max_abs_err"], worst)
+    squeeze = {
+        "name": "inv_squeeze",
+        "route": "cuda",
+        "source": "jxl_oxide_tpu_torch/csrc/modular_squeeze.cu",
+        "replaces": "jxl_oxide_tpu/ops/modular_tail.py:82",
+        **squeeze_paths[MODULAR_PATH],
+        # integer arithmetic: every comparison above was equality
+        "max_abs_err": 0,
+        "library_ms": None,
+        "pyramid": pyramid,
+    }
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [report]}))
+    print(json.dumps({"kernels": [report, squeeze]}))
     print(f"card: {em.card()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

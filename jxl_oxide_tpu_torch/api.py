@@ -4,14 +4,19 @@ Behavioral parity: jxl-oxide/src/lib.rs (JxlImage/Render) and fb.rs
 (sample conversion); the torch counterpart of jxl_oxide_tpu/api.py over
 the port's envelope. Container and header parsing is a copy of the JAX
 package's (host-side); `render_frame(0)` runs the host entropy stage of
-one VarDCT keyframe (the sequence of jxl_oxide_tpu/serving.py
-`_host_stage_fast`), then the device stage: the fused 4:4:4 program, the
-fused chroma-subsampled program or the staged path
-(render/vardct.py, ops/vardct_pipeline.py, with the EPF as a CUDA
-kernel), the render tail (render/render.py), YCbCr -> RGB for YCbCr
-frames, and the color tail. Streams outside the envelope raise
-JxlNotSupportedError naming the ROADMAP item that will port them; none
-decodes through a hidden path.
+one keyframe, then its device stage.
+  - VarDCT: the host stage is the sequence of jxl_oxide_tpu/serving.py
+    `_host_stage_fast`; the device stage the fused 4:4:4 program, the
+    fused chroma-subsampled program or the staged path (render/vardct.py,
+    ops/vardct_pipeline.py) and the render tail.
+  - Modular: the host stage decodes the sections (render/frame.py) and
+    runs the inverse transforms when the gate keeps them on the host; the
+    device stage runs them otherwise (models/modular.py, the squeeze as a
+    CUDA kernel), then the render tail (render/render.py).
+Then YCbCr -> RGB for YCbCr frames and the color tail; the EPF is a CUDA
+kernel on both. Streams outside the envelope raise JxlNotSupportedError
+naming the ROADMAP item that will port them; none decodes through a
+hidden path.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from .utils.errors import (
     JxlNotSupportedError,
     JxlValidationError,
 )
+from .utils.options import use_decode_device
 from .utils.trace import span, traced
 
 __all__ = ["JxlImage", "Render"]
@@ -80,10 +86,22 @@ class Render:
 
 @dataclass
 class HostStage:
-    """What the host entropy stage hands to the device stage."""
+    """What the host entropy stage of a VarDCT frame hands to the device
+    stage."""
 
     state: object       # render.vardct.VardctFrameState
     hf_global: object   # render.vardct.HfGlobal
+    frame: Frame
+
+
+@dataclass
+class ModularHostStage:
+    """What the host stage of a Modular frame hands to the device stage:
+    the frame's ModularImage, and its original channels when the host ran
+    the inverse transforms (None when the device tail will)."""
+
+    modular: object     # models.modular.ModularImage
+    channels: list | None
     frame: Frame
 
 
@@ -252,11 +270,13 @@ class JxlImage:
     # -- rendering ----------------------------------------------------------
 
     def _check_envelope(self, keyframe_idx: int) -> Frame:
-        """The port's envelope: one VarDCT keyframe, 4:4:4 or
-        chroma-subsampled YCbCr (4:2:0, 4:2:2, 4:4:0), with no extra
-        channels, features, upsampling or LF frame, orientation 1, and an
-        XYB or enum sRGB/linear RGB colour encoding. Anything else raises
-        JxlNotSupportedError naming the ROADMAP item that will port it."""
+        """The port's envelope: one keyframe with no extra channels,
+        features, upsampling or LF frame, orientation 1, and an XYB or enum
+        sRGB/linear RGB colour encoding (so three colour channels); VarDCT
+        4:4:4 or chroma-subsampled YCbCr (4:2:0, 4:2:2, 4:4:0), or Modular
+        (4:4:4 YCbCr included) with integer or float samples. Anything
+        else raises JxlNotSupportedError naming the ROADMAP item that will
+        port it."""
         meta = self.image_header.metadata
         if keyframe_idx != 0 or self.num_keyframes != 1 or len(self._frames) != 1:
             raise _not_supported("multi-frame streams and animation", 9)
@@ -275,10 +295,12 @@ class JxlImage:
             )
         fr = self._frames[0]
         header = fr.header
-        if header.encoding != Encoding.VARDCT:
-            raise _not_supported("Modular frames", 11)
-        if header.do_ycbcr and not any(j != 0 for j in header.jpeg_upsampling):
-            raise _not_supported("4:4:4 YCbCr VarDCT", 7)
+        subsampled = any(j != 0 for j in header.jpeg_upsampling)
+        if header.encoding == Encoding.VARDCT:
+            if header.do_ycbcr and not subsampled:
+                raise _not_supported("4:4:4 YCbCr VarDCT", 7)
+        elif header.do_ycbcr and subsampled:
+            raise _not_supported("chroma-subsampled YCbCr Modular frames", 7)
         if (
             header.upsampling != 1
             or header.lf_level != 0
@@ -298,10 +320,30 @@ class JxlImage:
         return fr
 
     @traced("Host entropy stage")
-    def _host_stage(self, keyframe_idx: int = 0) -> HostStage:
-        """Headers of the frame's sections plus the C++ entropy decode into
-        whole-frame coefficient planes (jxl_oxide_tpu/serving.py
-        `_host_stage_fast`, without the alpha leg)."""
+    def _host_stage(self, keyframe_idx: int = 0):
+        """Headers of the frame's sections plus the C++ entropy decode: into
+        whole-frame coefficient planes for a VarDCT frame
+        (jxl_oxide_tpu/serving.py `_host_stage_fast`, without the alpha
+        leg), into the Modular channel slots for a Modular frame, whose
+        inverse transforms run here when the gate keeps them on the host.
+        Returns a HostStage or a ModularHostStage."""
+        fr = self._check_envelope(keyframe_idx)
+        # the decode's device decides whether the modular tail may leave the
+        # host (utils/options.py), for the frame and its group sub-images
+        with use_decode_device(self.device):
+            if fr.header.encoding == Encoding.MODULAR:
+                return self._modular_host_stage(fr)
+            return self._vardct_host_stage(fr)
+
+    def _modular_host_stage(self, fr: Frame) -> ModularHostStage:
+        modular = fr.decode_modular_sections()
+        chans = None
+        if not modular.device_tail_selected():
+            with span("Modular tail"):
+                chans = modular.finish()
+        return ModularHostStage(modular, chans, fr)
+
+    def _vardct_host_stage(self, fr: Frame) -> HostStage:
         from .render.vardct import (
             HfGlobal,
             VardctFrameState,
@@ -310,7 +352,6 @@ class JxlImage:
             parse_lf_group,
         )
 
-        fr = self._check_envelope(keyframe_idx)
         header = fr.header
         lf_global = fr.parse_lf_global()
         gmod = lf_global.gmodular
@@ -371,20 +412,35 @@ class JxlImage:
             source, target, meta.opsin_inverse_matrix, meta.tone_mapping
         )
 
-    def _device_stage(self, host: HostStage) -> list:
-        """The device stage on the host stage's planes: the fused 4:4:4
-        program, the fused subsampled program or the staged path, the
-        render tail, YCbCr -> RGB for a YCbCr frame, then the color tail.
-        Returns three [H, W] float32 planes on self.device."""
+    def _device_stage(self, host) -> list:
+        """The device stage on the host stage's output. VarDCT: the fused
+        4:4:4 program, the fused subsampled program or the staged path,
+        then the render tail. Modular: the inverse transforms on the device
+        when the host did not run them, then the render tail. Then YCbCr ->
+        RGB for a YCbCr frame and the color tail. Returns three [H, W]
+        float32 planes on self.device."""
         from .ops.color import ycbcr_to_rgb
-        from .render.render import render_vardct_tail
-        from .render.vardct import decode_vardct_planes
 
-        state = host.state
-        planes = decode_vardct_planes(state, host.hf_global, self.device)
-        state.trim_coeff_planes()
-        planes = render_vardct_tail(state, planes)
-        if state.header.do_ycbcr:
+        if isinstance(host, ModularHostStage):
+            from .render.render import render_modular_tail
+
+            chans = host.channels
+            if chans is None:
+                float_samples = (
+                    self.image_header.metadata.bit_depth.is_float)
+                with use_decode_device(self.device), span("Modular tail"):
+                    # float samples are converted on the host
+                    chans = host.modular.finish(to_device=not float_samples)
+            planes = render_modular_tail(host.frame, chans, self.device)
+        else:
+            from .render.render import render_vardct_tail
+            from .render.vardct import decode_vardct_planes
+
+            state = host.state
+            planes = decode_vardct_planes(state, host.hf_global, self.device)
+            state.trim_coeff_planes()
+            planes = render_vardct_tail(state, planes)
+        if host.frame.header.do_ycbcr:
             planes = list(ycbcr_to_rgb(planes[0], planes[1], planes[2]))
         tr = self._color_transform()
         if not tr.is_noop:

@@ -8,7 +8,9 @@ general slow path with full property vector).
 Host-side stage. Channels are numpy int32 arrays; per-group decode writes into
 views of the transformed channel arrays so groups decode independently (the
 host-parallel grain). Inverse transforms run once per (sub)image after all
-groups land — on device in the render path, via numpy here for the oracle.
+groups land: on the host (numpy and the C++ squeeze), or, for a large frame
+decoded on CUDA, on the device (`inverse_transforms_device`, with the
+squeeze as a hand-written CUDA kernel; ModularImage.finish selects).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..coding.entropy import Decoder
 from ..io.bitstream import Bitstream, U, unpack_signed
@@ -23,15 +26,64 @@ from ..utils.errors import JxlEofError, JxlValidationError
 from .modular_ma import FlatLeaf, FlatTree, MaConfig
 from .modular_predict import PredictorState, WpHeader, grad_clamped, _wrap_i32
 from .modular_transform import (
+    DELTA_PALETTE,
     ChannelInfo,
     Palette,
+    Rct,
     Slot,
     Squeeze,
     TransformInfo,
     parse_transform,
 )
 
-__all__ = ["ModularHeader", "ModularImage", "ModularSubimage", "ChannelInfo"]
+__all__ = ["ModularHeader", "ModularImage", "ModularSubimage", "ChannelInfo",
+           "inverse_transforms_device"]
+
+
+def inverse_transforms_device(transforms, planes: list, bit_depth: int) -> list:
+    """The inverse transforms on int32 tensors (jxl_oxide_tpu/models/
+    modular.py _finish_device's chain): `planes` are the transformed
+    channel slots in slot order, as tensors on one device; returns the
+    original channels. It mirrors the host's slot bookkeeping: residual
+    removal for in-place squeezes and the others, the palette meta pop and
+    the re-expansion of its members. RCT and palette are torch ops
+    (ops/modular_tail.py); each squeeze goes through the kernel's wrapper
+    ops/cuda/squeeze.py inv_squeeze_cuda, looked up on its module at each
+    call so that a measurement can wrap it in one place."""
+    from ..ops import modular_tail as mt
+    from ..ops.cuda import squeeze as kernel
+
+    dev = list(planes)
+    for tr in reversed(transforms):
+        if isinstance(tr, Rct):
+            b = tr.begin_c
+            dev[b], dev[b + 1], dev[b + 2] = mt.inv_rct(
+                dev[b], dev[b + 1], dev[b + 2], tr.rct_type
+            )
+        elif isinstance(tr, Squeeze):
+            for sp in reversed(tr.sp):
+                begin, n = sp.begin_c, sp.num_c
+                end = begin + n
+                if sp.in_place:
+                    residuals = dev[end : end + n]
+                    del dev[end : end + n]
+                else:
+                    residuals = dev[len(dev) - n :]
+                    del dev[len(dev) - n :]
+                for i in range(n):
+                    dev[begin + i] = kernel.inv_squeeze_cuda(
+                        dev[begin + i], residuals[i], sp.horizontal
+                    )
+        else:  # Palette
+            palette = dev.pop(0)
+            begin = tr.begin_c
+            outs = mt.palette_lookup(
+                palette, dev[begin],
+                torch.from_numpy(DELTA_PALETTE).to(palette.device),
+                tr.num_c, tr.nb_colours, tr.nb_deltas, bit_depth,
+            )
+            dev[begin : begin + 1] = list(outs)
+    return dev
 
 
 @dataclass
@@ -252,15 +304,101 @@ class ModularImage:
                     sub.views.append(view)
         return lf_groups, pass_groups
 
-    def finish(self) -> list[np.ndarray]:
-        """Apply inverse transforms (reverse order, in place through views)
-        and return the original channel arrays. Host-only in the port: the
-        JAX package's device tail (ops/modular_tail.py) is not ported."""
+    def finish(self, to_device: bool = False) -> list:
+        """Apply inverse transforms (reverse order) and return the original
+        channels.
+
+        The tail runs on the decode's device when `device_tail_selected`
+        (a CUDA decode, transforms the device twins take, a plane of at
+        least utils/options.py DEVICE_TAIL_MIN_SAMPLES samples); else on
+        the host, in place through the views. With to_device=True a device
+        tail returns its int32 tensors on the device and writes nothing
+        back: the render leg reads them there. Otherwise the results are
+        written back into the original channel buffers, which this
+        returns, for host consumers (a group sub-image's parent views, the
+        float-sample conversion, tests)."""
+        if self.device_tail_selected():
+            planes = self._finish_device()
+            if to_device:
+                return planes
+            for target, arr in zip(self.image_channels, planes):
+                target[:, :] = arr.cpu().numpy()
+            return self.image_channels
         slots = self.slots
         for tr in reversed(self.header.transforms):
             tr.inverse(slots, self.bit_depth)
         self.finished = True
         return self.image_channels
+
+    def device_tail_selected(self) -> bool:
+        """finish()'s selection (jxl_oxide_tpu/models/modular.py:269-276,
+        without the JXL_TPU_DEVICE_MODULAR override)."""
+        from ..utils import options as _opts
+
+        return bool(
+            _opts.device_modular_may_engage()
+            and self.header.transforms
+            and self._device_tail_supported()
+            and self._device_tail_worthwhile()
+        )
+
+    def _device_tail_worthwhile(self) -> bool:
+        """The size gate: the squeeze recurrence is sequential along the
+        squeezed axis and parallel across the other, so small planes leave
+        the card idle while the host C++ path finishes in microseconds.
+        Engage only when at least one transformed plane carries at least
+        utils/options.py DEVICE_TAIL_MIN_SAMPLES samples."""
+        from ..utils import options as _opts
+
+        return any(
+            s.arr is not None and s.arr.size >= _opts.DEVICE_TAIL_MIN_SAMPLES
+            for s in self.slots
+        )
+
+    def _device_tail_supported(self) -> bool:
+        """Device envelope: i32 lane and transforms whose device twins are
+        bit-exact (palette predictor-deltas with a non-Zero predictor are
+        sample-sequential on the output raster — host only)."""
+        if any(
+            s.arr.dtype != np.int32
+            for s in self.slots
+            if s.arr is not None and s.arr.size
+        ):
+            return False
+        for tr in self.header.transforms:
+            if isinstance(tr, Palette):
+                if tr.nb_deltas > 0 and tr.d_pred != 0:
+                    return False
+                if self.bit_depth >= 28:
+                    # synthetic-palette products exceed i32 (the device
+                    # ops have no i64 lane); the host path computes in i64
+                    return False
+            elif not isinstance(tr, (Rct, Squeeze)):
+                return False
+        return True
+
+    def _finish_device(self) -> list[torch.Tensor]:
+        """Device twin of the host tail: the slots go up to the decode's
+        device in one copy, then `inverse_transforms_device`. Returns the
+        original channels as int32 tensors there."""
+        from ..utils.options import get_decode_device
+
+        arrs = [s.arr for s in self.slots]
+        sizes = [a.size for a in arrs]
+        flat = np.empty(sum(sizes), dtype=np.int32)
+        pos = 0
+        for a, n in zip(arrs, sizes):
+            flat[pos : pos + n] = a.reshape(-1)
+            pos += n
+        buf = torch.from_numpy(flat).to(get_decode_device())
+        planes = [
+            part.view(a.shape)
+            for part, a in zip(torch.split(buf, sizes), arrs)
+        ]
+        out = inverse_transforms_device(self.header.transforms, planes,
+                                        self.bit_depth)
+        self.finished = True
+        return out
 
     def snapshot(self) -> "ModularImage":
         """Copy of the current decode state whose finish() leaves this

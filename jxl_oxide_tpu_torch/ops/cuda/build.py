@@ -2,10 +2,11 @@
 interface and load it with ctypes.
 
 nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC:
-no PyTorch headers, so a build takes seconds. The library goes into the
-package's gitignored `_build/` directory at first use and is rebuilt when
-a source or header under csrc/ is newer. `-Xptxas -v` output (registers,
-shared memory, spills) is kept beside the library as `<name>.ptxas.txt`.
+no PyTorch headers, so a build takes seconds. Each library (`SOURCES`:
+the EPF kernel and the modular squeeze kernel) goes into the package's
+gitignored `_build/` directory at first use and is rebuilt when one of its
+own sources is newer. `-Xptxas -v` output (registers, shared memory,
+spills) is kept beside the library as `<name>.ptxas.txt`.
 """
 
 from __future__ import annotations
@@ -22,6 +23,12 @@ CSRC_DIR = os.path.join(_PKG_ROOT, "csrc")
 BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# library name -> its sources in csrc/: the .cu it compiles, then headers
+SOURCES = {
+    "epf": ("epf.cu", "epf_math.cuh"),
+    "modular_squeeze": ("modular_squeeze.cu", "squeeze_math.cuh"),
+}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -42,13 +49,11 @@ def library_path(name: str) -> str:
 
 def build(name: str) -> str:
     """Compile csrc/<name>.cu into _build/lib<name>.so if it is missing or
-    older than any file in csrc/; returns the library path."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    older than any of its SOURCES; returns the library path."""
+    sources = [os.path.join(CSRC_DIR, f) for f in SOURCES[name]]
+    src = sources[0]
     out = library_path(name)
-    newest = max(
-        os.path.getmtime(os.path.join(CSRC_DIR, f))
-        for f in os.listdir(CSRC_DIR)
-    )
+    newest = max(os.path.getmtime(f) for f in sources)
     if os.path.exists(out) and os.path.getmtime(out) >= newest:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -175,13 +175,22 @@ def parse_global_modular(
         # JxlImageBuilder force_wide_buffers). The native decoder has the
         # i16 store path; the Python fallback stays wide.
         from .. import native as _native
-        from ..utils.options import get_force_wide
+        from ..utils import options as _opts
 
+        # the device modular tail computes in i32 (ops/modular_tail.py and
+        # the squeeze kernel); decode wide so its results match the host
+        # lane bit for bit. Only frames large enough to engage the tail
+        # (ModularImage.finish's gate) give up the narrow i16 fast path.
+        wide_for_device = (
+            _opts.device_modular_may_engage()
+            and cw * ch >= _opts.DEVICE_TAIL_MIN_SAMPLES
+        )
         narrow = (
             meta.modular_16bit_buffers
             and not meta.bit_depth.is_float
-            and not get_force_wide()
+            and not _opts.get_force_wide()
             and _native.available()
+            and not wide_for_device
         )
         modular = ModularImage(
             bs,
@@ -266,6 +275,130 @@ class Frame:
             if self.toc.is_single_entry:
                 self._single_bs = bs  # continue reading subsequent sections
         return self.lf_global
+
+    def decode_modular_frame(self) -> list[np.ndarray]:
+        """Full Modular frame decode: LfGlobal + LF groups + pass groups +
+        inverse transforms (ModularImage.finish, on the host or written
+        back from the device). Returns the original channel arrays."""
+        modular = self.decode_modular_sections()
+        return modular.finish() if modular is not None else []
+
+    def decode_modular_sections(self):
+        """LfGlobal + LF groups + pass groups of a Modular frame, the
+        non-progressive decode of jxl_oxide_tpu/render/frame.py
+        decode_modular_frame without its inverse transforms; returns the
+        frame's ModularImage (None without channels), its slots filled and
+        not yet finished. The group sub-images finish here, in place: the
+        gate keeps their small planes on the host (a group plane as large
+        as the gate finishes on the device and is written back). Each call
+        decodes afresh, LfGlobal included: finishing transforms the
+        ModularImage's buffers in place."""
+        if self.header.encoding != Encoding.MODULAR:
+            raise ValueError("not a modular frame")
+        self.lf_global = None
+        lf_global = self.parse_lf_global()
+        gmodular = lf_global.gmodular
+        modular = gmodular.modular
+        header = self.header
+
+        if modular is not None:
+            lf_groups, pass_groups = modular.prepare_groups(self.pass_shifts)
+        else:
+            lf_groups, pass_groups = {}, [{}]
+
+        if self.toc.is_single_entry:
+            bs = self._single_bs
+            # Single-group frame: remaining streams follow in the same section
+            self._decode_lf_group(bs, 0, lf_groups.get(0), gmodular)
+            for pass_idx in range(header.passes.num_passes):
+                sub = pass_groups[pass_idx].get(0) if pass_idx < len(pass_groups) else None
+                self._decode_pass_group(bs, pass_idx, 0, sub, gmodular)
+        else:
+            jobs = []
+            for lf_idx in range(header.num_lf_groups):
+                sub = lf_groups.get(lf_idx)
+                entry = self.toc.entry_for("lf_group", lf_idx)
+                jobs.append((self._decode_lf_group, entry, lf_idx, sub))
+            # HfGlobal section must be empty for modular frames (no-op).
+            for pass_idx in range(header.passes.num_passes):
+                for g_idx in range(header.num_groups):
+                    sub = (
+                        pass_groups[pass_idx].get(g_idx)
+                        if pass_idx < len(pass_groups)
+                        else None
+                    )
+                    entry = self.toc.entry_for("group_pass", g_idx, pass_idx)
+                    jobs.append(
+                        (self._decode_pass_group_job, entry, (pass_idx, g_idx), sub)
+                    )
+            self._run_section_jobs(jobs, gmodular)
+        return modular
+
+    def _decode_pass_group_job(self, bs, key, sub, gmodular) -> None:
+        pass_idx, g_idx = key
+        self._decode_pass_group(bs, pass_idx, g_idx, sub, gmodular)
+
+    def _section_stream_index(self, fn, key) -> int:
+        """Modular sub-stream index (pass_group.rs:156-161, lf_group.rs:82-87)."""
+        if fn == self._decode_lf_group:
+            return 1 + self.header.num_lf_groups + key
+        pass_idx, group_idx = key
+        return (
+            1
+            + 3 * self.header.num_lf_groups
+            + 17
+            + pass_idx * self.header.num_groups
+            + group_idx
+        )
+
+    def _run_section_jobs(self, jobs, gmodular) -> None:
+        """Decode independent sections. With the native runtime, ALL
+        sections go through one C++ call that fans out on a native thread
+        pool (no GIL in the hot path — reference per-group pool.scope,
+        jxl-render/src/modular.rs:36-130); the Python fallback decodes
+        sequentially."""
+        from .. import native as _native
+
+        if _native.available():
+            from ..utils.threads import num_workers
+
+            prepared = []
+            for fn, entry, key, sub in jobs:
+                if sub is None or sub.is_empty:
+                    continue
+                bs = Bitstream(self.section_bytes(entry))
+                recursive = ModularImage(
+                    bs,
+                    sub.infos,
+                    self.header.group_dim,
+                    self.image_header.metadata.bit_depth.bits_per_sample,
+                    gmodular.ma_config,
+                    views=sub.views,
+                )
+                subimg = recursive.subimage_all()
+                rec = subimg.native_record(bs, self._section_stream_index(fn, key))
+                prepared.append((rec, recursive, subimg))
+            if not prepared:
+                return
+            rets = _native.decode_modular_batch(
+                [rec for rec, _, _ in prepared],
+                num_workers(len(prepared)),
+            )
+            first_err = None
+            for ret, (_, recursive, subimg) in zip(rets, prepared):
+                if ret != 0:
+                    if first_err is None:
+                        first_err = int(ret)
+                    continue
+                subimg.partial = False
+                recursive.finish()
+            if first_err is not None:
+                _native.raise_modular_ret(first_err)
+            return
+
+        for fn, entry, key, sub in jobs:
+            bs = Bitstream(self.section_bytes(entry))
+            fn(bs, key, sub, gmodular)
 
     def _decode_lf_group(self, bs, lf_group_idx, sub, gmodular) -> None:
         """Modular-frame LF group (lf_group.rs mlf_group decode)."""

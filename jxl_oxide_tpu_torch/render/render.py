@@ -1,23 +1,103 @@
-"""The render tail of a VarDCT frame: the device planes of
-render/vardct.py decode_vardct_planes -> chroma upsample -> crop ->
-gaborish -> EPF.
+"""The render tails of a frame, on the device.
 
-Behavioral parity: jxl-render/src/render.rs (render_frame) and
-image.rs upsample_jpeg; the VarDCT half of
-jxl_oxide_tpu/render/render.py::render_frame's tail. The fused programs
-upsample and filter inside the program (state.chroma_upsampled,
+VarDCT: the device planes of render/vardct.py decode_vardct_planes ->
+chroma upsample -> crop -> gaborish -> EPF. The fused programs upsample
+and filter inside the program (state.chroma_upsampled,
 state.filters_applied), so on their planes the tail only crops; the
 staged path's planes take every step here.
+
+Modular: the original channels of the frame's ModularImage -> floats
+(integer samples, lossless XYB, or float samples on the host) ->
+gaborish -> EPF at the frame's constant sigma.
+
+Behavioral parity: jxl-render/src/render.rs (render_frame), image.rs
+(upsample_jpeg, convert_modular_xyb) and jxl-image lib.rs
+(integer-sample parsing); jxl_oxide_tpu/render/render.py::render_frame.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.filters import apply_epf, apply_gabor, sigma_map_from_blocks
 from ..utils.trace import traced
 
-__all__ = ["render_vardct_tail"]
+__all__ = ["render_modular_tail", "render_vardct_tail"]
+
+
+def _parse_float_samples(arr: np.ndarray, bit_depth) -> np.ndarray:
+    """Float samples stored as integers -> float32 on the host (the float
+    branch of jxl_oxide_tpu/render/render.py _parse_integer_samples,
+    jxl-image lib.rs:458-487)."""
+    bits = bit_depth.bits_per_sample
+    exp_bits = bit_depth.exp_bits
+    if bits == 32 and exp_bits == 8:
+        return arr.astype(np.uint32).view(np.float32).astype(np.float32)
+    mantissa_bits = bits - exp_bits - 1
+    u = arr.astype(np.int64) & ((1 << bits) - 1)
+    sign = (u >> (bits - 1)) & 1
+    exp = (u >> mantissa_bits) & ((1 << exp_bits) - 1)
+    mant = u & ((1 << mantissa_bits) - 1)
+    bias = (1 << (exp_bits - 1)) - 1
+    val = np.ldexp(
+        1.0 + mant / (1 << mantissa_bits), (exp - bias).astype(np.int32)
+    )
+    val = np.where(exp == 0, np.ldexp(mant / (1 << mantissa_bits), 1 - bias), val)
+    return np.where(sign == 1, -val, val).astype(np.float32)
+
+
+def _upload(chans: list, device) -> torch.Tensor:
+    """The three colour channels as one [3, h, w] tensor on `device`:
+    tensors stay where they are; host arrays go up in one copy in their
+    own integer type (i16 from the narrow lane stays i16)."""
+    if isinstance(chans[0], torch.Tensor):
+        return torch.stack(chans[:3])
+    return torch.from_numpy(np.stack(chans[:3])).to(device)
+
+
+@traced("Render frame")
+def render_modular_tail(frame, chans: list, device) -> list:
+    """Three [h, w] float32 planes on `device` from the original channels
+    of a Modular frame (numpy arrays after the host tail, int32 tensors on
+    the device after the device tail), filtered as the frame says."""
+    header = frame.header
+    meta = frame.image_header.metadata
+    bit_depth = meta.bit_depth
+    h, w = header.sample_height(), header.sample_width()
+    if meta.xyb_encoded:
+        # convert_modular_xyb (image.rs:148-188): stream order [y, x, b],
+        # b += y, output [x*m_x, y*m_y, b*m_b] with m/128 scaling, in
+        # float64 and then rounded to float32, as the JAX package does
+        y, x, b = _upload(chans, device).to(torch.float64).unbind(0)
+        b = b + y
+        m_x, m_y, m_b = (m / 128.0 for m in frame.lf_global.lf_dequant)
+        color = [(x * m_x).to(torch.float32), (y * m_y).to(torch.float32),
+                 (b * m_b).to(torch.float32)]
+    elif bit_depth.is_float:
+        color = list(torch.from_numpy(np.stack([
+            _parse_float_samples(np.asarray(c), bit_depth) for c in chans[:3]
+        ])).to(device).unbind(0))
+    else:
+        # integer samples -> [0, 1]: an IEEE float32 division by
+        # 2^bits - 1. The divisor is a tensor on the device: a Python
+        # scalar divisor makes torch's CUDA division multiply by its
+        # reciprocal, which can differ by an ulp
+        planes = _upload(chans, device).to(torch.float32)
+        div = torch.tensor(float(np.float32((1 << bit_depth.bits_per_sample)
+                                            - 1)),
+                           dtype=torch.float32, device=planes.device)
+        color = list((planes / div).unbind(0))
+
+    rf = header.restoration_filter
+    if rf.gab.enabled:
+        color = apply_gabor(color, rf.gab.weights)
+    if rf.epf.enabled:
+        sigma = torch.full((h, w), float(np.float32(rf.epf.sigma_for_modular)),
+                           dtype=torch.float32, device=color[0].device)
+        out = apply_epf(color, sigma, rf.epf)
+        color = [out[0], out[1], out[2]]
+    return color
 
 
 def _upsample2x_triangle(plane: torch.Tensor, axis: int,

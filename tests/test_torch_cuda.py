@@ -1,9 +1,12 @@
-"""The port on the card: the hand-written EPF kernel (csrc/epf.cu) against
-its plain torch version, and the committed fixtures decoded on CUDA.
+"""The port on the card: the hand-written EPF kernel (csrc/epf.cu) and
+squeeze kernel (csrc/modular_squeeze.cu) against their plain torch
+versions, the squeeze pyramid against the host tail, and the committed
+fixtures decoded on CUDA.
 
 Marked `cuda`: where torch.cuda.is_available() is false these skip (the
-kernel has no CPU mode; its arithmetic is held here by
-test_torch_epf_math.py). On a machine with the card:
+kernels have no CPU mode; their arithmetic is held here by
+test_torch_epf_math.py and test_torch_squeeze_math.py). On a machine with
+the card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -147,4 +150,88 @@ def test_fixture_decodes_on_cuda(cuda, name):
     u8 = img.render_frame(0).to_u8()
     assert epf_step_cuda.launches - before == (epf.iters if epf.enabled
                                                 else 0)
+    assert tp.max_lsb(u8, ref) <= 1
+
+
+I32_EDGES = (-2**31, -2**31 + 1, -2**30, -13, -1, 0, 1, 12, 2**30,
+             2**31 - 2, 2**31 - 1)
+
+
+# (lines, n): n odd and even, no residual (n = 1), one line, one
+# squeezed position, partial 32-line blocks and 32-column tiles, 2048^2
+@pytest.mark.parametrize("lines,n", [(1, 2), (3, 3), (70, 1), (33, 64),
+                                     (40, 65), (1, 131), (1024, 1024),
+                                     (2048, 2048)])
+@pytest.mark.parametrize("horizontal", [True, False])
+@pytest.mark.parametrize("extremes", [False, True])
+def test_squeeze_kernel_matches_plain(cuda, lines, n, horizontal, extremes):
+    """The hand-written squeeze kernel (csrc/modular_squeeze.cu) against
+    its plain torch version on the card, bit for bit."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch.ops import modular_tail as mt
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze import inv_squeeze_cuda
+
+    rng = np.random.default_rng(lines + n)
+    na, nr = (n + 1) // 2, n // 2
+    shapes = ((lines, na), (lines, nr)) if horizontal else ((na, lines),
+                                                             (nr, lines))
+    if extremes:
+        avg, res = (rng.choice(np.array(I32_EDGES, np.int32), s)
+                    for s in shapes)
+    else:
+        avg, res = (rng.integers(-4096, 4096, s).astype(np.int32)
+                    for s in shapes)
+    avg, res = torch.from_numpy(avg).to(cuda), torch.from_numpy(res).to(cuda)
+    before = inv_squeeze_cuda.launches
+    got = inv_squeeze_cuda(avg, res, horizontal)
+    torch.cuda.synchronize()
+    assert inv_squeeze_cuda.launches == before + (1 if nr else 0)
+    want = (mt.inv_squeeze_h if horizontal else mt.inv_squeeze_v)(avg, res)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+def test_squeeze_pyramid_matches_host(cuda):
+    """A default squeeze pyramid of a 2048^2 plane through the port's
+    device tail on the card and through the host's Squeeze.inverse (C++
+    rows): bit for bit."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch.models import modular_transform as mtr
+    from jxl_oxide_tpu_torch.models.modular import inverse_transforms_device
+
+    def pyramid():
+        rng = np.random.default_rng(0)
+        parent = rng.integers(-1024, 1024, (2048, 2048)).astype(np.int32)
+        sq = mtr.Squeeze()
+        sq.set_default_params([mtr.ChannelInfo(2048, 2048)], 0)
+        slots = [mtr.Slot(parent)]
+        sq.check([mtr.ChannelInfo(2048, 2048)], 0, slots, [])
+        return sq, slots, parent
+
+    sq, slots, _ = pyramid()
+    planes = [torch.from_numpy(np.ascontiguousarray(s.arr)).to(cuda)
+              for s in slots]
+    (got,) = inverse_transforms_device([sq], planes, 16)
+    sq, slots, parent = pyramid()
+    sq.inverse(slots, 16)
+    assert torch.equal(got.cpu(), torch.from_numpy(parent))
+
+
+@pytest.mark.parametrize("name,squeezes", [("modular_1024", 1),
+                                           ("modular_xyb_512", 0)])
+def test_modular_fixture_decodes_on_cuda(cuda, name, squeezes):
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze import inv_squeeze_cuda
+
+    data, ref = tp.fixture(name)
+    img = JxlImage.from_bytes(data)
+    epf = img._frames[0].header.restoration_filter.epf
+    before = epf_step_cuda.launches, inv_squeeze_cuda.launches
+    u8 = img.render_frame(0).to_u8()
+    assert epf_step_cuda.launches - before[0] == (epf.iters if epf.enabled
+                                                   else 0)
+    assert inv_squeeze_cuda.launches - before[1] == squeezes
     assert tp.max_lsb(u8, ref) <= 1

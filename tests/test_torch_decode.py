@@ -46,12 +46,11 @@ def test_render_outputs_agree_with_jax():
     assert tp.max_lsb(u16, ref.to_u16()) <= 1
 
 
-def _modular():
+def _grey_modular():
     from encoder import encode_jxl_modular
 
     rng = np.random.default_rng(0)
-    return encode_jxl_modular(
-        [rng.integers(0, 256, (32, 32)) for _ in range(3)], bit_depth=8)
+    return encode_jxl_modular([rng.integers(0, 256, (32, 32))], bit_depth=8)
 
 
 def _lf_frame():
@@ -69,7 +68,7 @@ def _orientation():
 
 
 @pytest.mark.parametrize("make,item", [
-    (_modular, "item 11"),
+    (_grey_modular, "item 15"),
     (_lf_frame, "item 9"),
     (_alpha, "item 17"),
     (_orientation, "item 16"),

@@ -21,6 +21,9 @@ FIXTURES = ("flagship_1024", "epf3_512", "mixed_512", "ycbcr420_1024",
             "ycbcr422_256", "staged_1030")
 # the fixtures that take the fused 4:4:4 program
 FUSED_FIXTURES = FIXTURES[:3]
+# lossless Modular: modular_1024 takes the device tail on CUDA, with
+# gaborish and 2 EPF passes; modular_xyb_512 the host tail
+MODULAR_FIXTURES = ("modular_1024", "modular_xyb_512")
 # jpeg_upsampling of the chroma layouts 4:2:0, 4:2:2 and 4:4:0
 CHROMA = {"420": (0, 1, 0), "422": (0, 2, 0), "440": (0, 3, 0)}
 for _p in (os.path.join(REPO, "tools"), REPO):

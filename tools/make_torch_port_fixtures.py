@@ -11,7 +11,7 @@ The port's chip smoke test and its CPU tests decode the .jxl files with
 jxl_oxide_tpu_torch and compare with the .npz references; a machine
 without JAX needs nothing else.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixtures.py [NAME...]
 """
 
 from __future__ import annotations
@@ -134,23 +134,42 @@ def staged_1030():
                                    epf_iters=2, sharpness=sharp)
 
 
+def smooth_u8(h, w, seed):
+    """smooth_rgb as three 8-bit integer planes (lossless Modular input)."""
+    img = np.round(smooth_rgb(h, w, seed) * 255).astype(np.int64)
+    return [img[:, :, c] for c in range(3)]
+
+
 def fixtures() -> dict:
+    """name -> a function that makes the stream."""
+    from encoder import encode_jxl_modular
     from encoder_vardct import encode_jxl_vardct
 
     return {
         # the flagship stream (bench.py:385-387)
-        "flagship_1024": encode_jxl_vardct(
+        "flagship_1024": lambda: encode_jxl_vardct(
             smooth_rgb(1024, 1024, seed=9), gabor=True, epf_iters=2),
         # bench.py vardct_epf3: 3 EPF passes, step 0 included
-        "epf3_512": encode_jxl_vardct(smooth_rgb(512, 512, 2), epf_iters=3),
-        "mixed_512": mixed_512(),
+        "epf3_512": lambda: encode_jxl_vardct(smooth_rgb(512, 512, 2),
+                                              epf_iters=3),
+        "mixed_512": mixed_512,
         # bench.py vardct_420 (bench.py:87-111), unchanged: 4:2:0 at the
         # flagship's geometry, 20 % non-zero, gaborish + 2 EPF passes
-        "ycbcr420_1024": ycbcr_stream(1024, 1024, (0, 1, 0), 4, 0.2,
-                                      gabor=True, epf_iters=2),
-        "ycbcr422_256": ycbcr_stream(256, 256, (0, 2, 0), 8, 0.2,
-                                     gabor=True, epf_iters=2),
-        "staged_1030": staged_1030(),
+        "ycbcr420_1024": lambda: ycbcr_stream(1024, 1024, (0, 1, 0), 4, 0.2,
+                                              gabor=True, epf_iters=2),
+        "ycbcr422_256": lambda: ycbcr_stream(256, 256, (0, 2, 0), 8, 0.2,
+                                             gabor=True, epf_iters=2),
+        "staged_1030": staged_1030,
+        # lossless Modular at the size where the device tail engages (a
+        # transformed plane of 2^20 samples): channel 0 squeezed
+        # horizontally, YCoCg RCT, gaborish + 2 EPF passes. About 3 MB:
+        # the in-repo encoder spends about 8 bits a sample on any content
+        "modular_1024": lambda: encode_jxl_modular(
+            smooth_u8(1024, 1024, 10), bit_depth=8, squeeze=True, rct=True,
+            gabor=True, epf_iters=2),
+        # lossless XYB Modular under the gate (the host tail), no filters
+        "modular_xyb_512": lambda: encode_jxl_modular(
+            smooth_u8(512, 512, 11), bit_depth=8, xyb=True, squeeze=True),
     }
 
 
@@ -160,9 +179,13 @@ def reference_u8(data: bytes) -> np.ndarray:
     return JxlImage.from_bytes(data).render_frame(0).to_u8()
 
 
-def main() -> None:
+def main(names) -> None:
+    """Write the fixtures `names` (all of them when empty). The .npz files
+    carry the time they were written, so rewrite only what changed."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    for name, data in fixtures().items():
+    makers = fixtures()
+    for name in names or makers:
+        data = makers[name]()
         u8 = reference_u8(data)
         with open(os.path.join(OUT_DIR, f"{name}.jxl"), "wb") as f:
             f.write(data)
@@ -171,4 +194,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
