@@ -24,22 +24,44 @@ Phases, each fatal (non-zero exit, no "ok" line):
      on the card's clock (a CUDA graph replayed between CUDA events, warm
      and cold) in Msamples/s beside the host's single-thread rate and the
      byte bound;
+  3c. the EPF kernel on stacks [N, 3, H, W] in one launch, N = 1, 2, 5
+     and 8, on the TMA and cp.async copies: bit for bit the N one-image
+     launches, and within EPF_ATOL of the plain version on the stack;
   4. the decode paths: decode the committed fixtures through
      JxlImage.from_bytes(data).render_frame(0).to_u8() on cuda, each
-     within 1 LSB of the committed jxl_oxide_tpu reference, with the EPF
-     launch count of that decode alone equal to the frame's EPF passes:
-     the fused 4:4:4 program (flagship_1024, the main path; epf3_512;
-     mixed_512), the fused chroma-subsampled program (ycbcr420_1024,
-     bench.py's vardct_420; ycbcr422_256) and the staged path with its
-     render tail (staged_1030, W = 1030), and lossless Modular with the
-     device tail (modular_1024: one squeeze launch, 2 EPF passes) and with
-     the host tail (modular_xyb_512, XYB), each decode's squeeze launches
-     counted too. Host-stage ms, device-stage ms and end-to-end MP/s,
-     warm, median of 5, for each. For one fixture of each path (TIMED) the
-     EPF and squeeze inputs are captured in the counted run, the kernels
-     are held against the plain versions on them and timed on them as in
-     phase 3, and one traced decode is broken down by the port's spans and
-     by kernel (torch.profiler).
+     within 1 LSB of the committed jxl_oxide_tpu reference (an alpha
+     channel exactly), with the EPF launch count of that decode alone
+     equal to the frame's EPF passes: the fused 4:4:4 program
+     (flagship_1024, the main path of a single decode; epf3_512;
+     mixed_512; flagship_alpha_1024 with an alpha channel;
+     orient6_512x384, EXIF orientation 6 on a non-square frame), the fused
+     chroma-subsampled program (ycbcr420_1024, bench.py's vardct_420;
+     ycbcr422_256) and the staged path with its render tail (staged_1030,
+     W = 1030), and lossless Modular with the device tail (modular_1024:
+     one squeeze launch, 2 EPF passes) and with the host tail
+     (modular_xyb_512, XYB; modular_alpha_512, alpha), each decode's
+     squeeze launches counted too. Host-stage ms, device-stage ms and
+     end-to-end MP/s, warm, median of 5, for each. For one fixture of each
+     path (TIMED) the EPF and squeeze inputs are captured in the counted
+     run, the kernels are held against the plain versions on them and
+     timed on them as in phase 3 (a squeeze beside its byte bound, with
+     a logged dependency-chain estimate, `squeeze_chain_estimate_ms`),
+     and one traced decode is broken down by the port's spans and by
+     kernel (torch.profiler);
+  5. serving (`phase_serving`): one decode_batch_stacked call over 8 x
+     flagship_1024, four 1024^2 alpha streams, 2 x ycbcr420_1024 and
+     modular_xyb_512 (per-image path), output "u8" and "device": every
+     result equal to its per-image decode (else the differing pixels are
+     counted and each image held within 1 LSB of its reference), each
+     fixture within 1 LSB of its reference, and the K1 launches of the
+     counted call equal to the stacked groups' EPF passes (not images).
+     Then, warm, median of 5: MP/s of the stacked call, of decode_batch
+     and of sequential per-image decodes; one traced stacked call by span
+     (summed over threads) and by kernel; the 8-image group's host enqueue
+     time and torch.profiler device-op count against one image's (fatal
+     above 1.1x, the kernels whose counts differ listed); the stacked EPF
+     passes timed on the card's clock, warm and cold, against their
+     bound.
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
 The squeeze kernel's timing helpers are here (`squeeze_device_ms`).
@@ -50,6 +72,7 @@ jxl_oxide_tpu, and exits non-zero without CUDA or without the package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import json
@@ -65,8 +88,20 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 EPF_ATOL = 2e-5
 FIXTURES = ("flagship_1024", "epf3_512", "mixed_512", "ycbcr420_1024",
-            "ycbcr422_256", "staged_1030", "modular_1024", "modular_xyb_512")
+            "ycbcr422_256", "staged_1030", "modular_1024", "modular_xyb_512",
+            "flagship_alpha_1024", "modular_alpha_512", "orient6_512x384")
 MAIN_PATH = "flagship_1024"
+# the serving phase's streams: bench.py's _bench_serving_batched shape (8 x
+# the flagship stream), four distinct 1024^2 alpha streams (the last three
+# committed without references), two 4:2:0 streams, and a Modular stream
+# that takes the per-image path
+SERVING = (("flagship_1024",) * 8
+           + ("flagship_alpha_1024", "flagship_alpha_1024_s1",
+              "flagship_alpha_1024_s2", "flagship_alpha_1024_s3")
+           + ("ycbcr420_1024",) * 2 + ("modular_xyb_512",))
+# stacks of the batched EPF checks: (N, 3, H, W), TMA and cp.async copies
+STACK_SHAPES = ((1, 3, 150, 40), (2, 3, 150, 40), (5, 3, 150, 42),
+                (2, 3, 64, 64), (8, 3, 1024, 1024))
 # the Modular path's fixture: its squeeze launch is the squeeze kernel's
 # main-path launch
 MODULAR_PATH = "modular_1024"
@@ -92,6 +127,13 @@ ALU_OPS_PER_S = 67e12
 # 11 for each of its two candidate quotients, 8 for the case test and
 # select; the step's sum, halving (4) and two sums
 SQUEEZE_OPS_PER_STEP = 45
+# an estimate, not a measurement, and not read from this kernel's SASS: the
+# squeeze's loop-carried chain (left -> tendency -> diff -> second -> left)
+# assumed to be about 20 dependent integer instructions a step, each
+# assumed 4 cycles apart on Hopper's fixed-latency integer pipes. It is
+# logged beside the measured times and kept out of the kernels line.
+SQUEEZE_CHAIN_OPS = 20
+INT_OP_CYCLES = 4
 # (shape, timed): TMA and cp.async copies, one tile and many, H < 3
 KERNEL_SHAPES = (
     ((3, 1024, 1024), True),
@@ -149,8 +191,9 @@ def host_us(planes, sigma, step, cs, sm, bsm, calls: int = 200) -> float:
 
 def copy_path(planes) -> str:
     """The copy the kernel takes: TMA where rows are 16-B aligned (the
-    caching allocator's blocks are, so W % 4 decides), cp.async else."""
-    return "TMA" if planes.shape[2] % 4 == 0 else "cp.async"
+    caching allocator's blocks are, so W % 4 decides), cp.async else.
+    planes: [3, H, W] or a stack [N, 3, H, W]."""
+    return "TMA" if planes.shape[-1] % 4 == 0 else "cp.async"
 
 
 def time_pass(planes, sigma, step, cs, sm, bsm) -> dict:
@@ -307,6 +350,50 @@ def phase_kernel(device) -> float:
     return worst
 
 
+def phase_stack_kernel(device) -> float:
+    """The EPF kernel on stacks [N, 3, H, W], one launch each: bit for bit
+    the N one-image launches, and within EPF_ATOL of the plain version on
+    the stack. Returns the worst |kernel - plain|."""
+    import torch
+
+    from jxl_oxide_tpu_torch.ops.cuda import epf_measure as em
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.filters import epf_step
+
+    cs, bsm = em.CHANNEL_SCALE, em.BORDER_SAD_MUL
+    worst = 0.0
+    for i, shape in enumerate(STACK_SHAPES):
+        n = shape[0]
+        ins = [em.epf_inputs(shape[1:], seed=100 + 10 * i + j)
+               for j in range(n)]
+        planes = torch.from_numpy(np.stack([p for p, _ in ins])).to(device)
+        sigma = torch.from_numpy(np.stack([s for _, s in ins])).to(device)
+        for step, sm in em.STEPS:
+            before = epf_step_cuda.launches
+            got = epf_step_cuda(planes, sigma, step, cs, sm, bsm)
+            if epf_step_cuda.launches != before + 1:
+                raise AssertionError("a stacked EPF pass is not one launch")
+            singles = torch.stack([
+                epf_step_cuda(planes[j], sigma[j], step, cs, sm, bsm)
+                for j in range(n)])
+            want = epf_step(planes, sigma, step, cs, sm, bsm)
+            torch.cuda.synchronize()
+            if not torch.equal(got, singles):
+                raise AssertionError(
+                    f"stacked EPF step {step} {shape}: "
+                    f"{int((got != singles).sum())} values differ from the "
+                    "one-image launches")
+            err = float((got - want).abs().max().item())
+            if not err <= EPF_ATOL:
+                raise AssertionError(f"stacked EPF step {step} {shape}: "
+                                     f"{err} from plain")
+            worst = max(worst, err)
+        log(f"epf stack {shape} {copy_path(planes)}: one launch per pass "
+            f"equals {n} one-image launches bit for bit, max|diff| to plain "
+            f"{worst:.3g}")
+    return worst
+
+
 @contextlib.contextmanager
 def watching(module, name: str, see):
     """Within the block, each call of module.name first shows its
@@ -324,6 +411,28 @@ def watching(module, name: str, see):
         yield
     finally:
         setattr(module, name, fn)
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def squeeze_chain_estimate_ms(res, horizontal: bool) -> float:
+    """An estimate of one squeeze's dependency-chain time: the serial steps
+    (residual positions along the squeezed axis) times the assumed
+    SQUEEZE_CHAIN_OPS dependent operations of INT_OP_CYCLES each, at the
+    highest SM clock. Lines run in parallel and do not lengthen it. Both
+    constants are assumptions, so this is no bound."""
+    steps = res.shape[1] if horizontal else res.shape[0]
+    return (steps * SQUEEZE_CHAIN_OPS * INT_OP_CYCLES / max_sm_clock_hz()
+            * 1e3)
 
 
 def squeeze_bytes(avg, res) -> int:
@@ -517,17 +626,26 @@ def phase_squeeze(device) -> dict:
 
 
 def profile_decode(name: str, data: bytes, top: int = 8) -> None:
-    """Where the time of one warm decode goes: the port's own spans
-    (utils/trace.py, host clock), kernel time by name from one
-    torch.profiler trace, and the share of the decode's wall time in
-    which the card ran no kernel or copy."""
+    """Where the time of one warm decode goes (profile_run)."""
+    from jxl_oxide_tpu_torch import JxlImage
+
+    profile_run(name, lambda: JxlImage.from_bytes(data).render_frame(0)
+                .to_u8(), top)
+
+
+def profile_run(name: str, run, top: int = 8,
+                sum_spans: bool = False) -> None:
+    """Where the time of one warm call of run() goes: the port's own spans
+    (utils/trace.py, host clock; with sum_spans, summed by name over the
+    call's threads), kernel time by name from one torch.profiler trace,
+    and the share of the call's wall time in which the card ran no kernel
+    or copy."""
     import logging
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from jxl_oxide_tpu_torch import JxlImage
     from jxl_oxide_tpu_torch.utils.trace import logger as trace_logger
 
     spans = []
@@ -545,11 +663,21 @@ def profile_decode(name: str, data: bytes, top: int = 8) -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            JxlImage.from_bytes(data).render_frame(0).to_u8()
+            run()
+            torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         trace_logger.removeHandler(keep)
         trace_logger.setLevel(level)
+    if sum_spans:
+        summed: dict[str, list] = {}
+        for line in spans:
+            span_name, ms = line.rsplit(": ", 1)
+            row = summed.setdefault(span_name, [0.0, 0])
+            row[0] += float(ms.split()[0])
+            row[1] += 1
+        spans = [f"{k}: {v[0]:.2f} ms in {v[1]} spans (summed over threads)"
+                 for k, v in sorted(summed.items(), key=lambda kv: -kv[1][0])]
     for line in spans:
         log(f"  {name} span {line}")
     by_name: dict[str, list] = {}
@@ -564,12 +692,25 @@ def profile_decode(name: str, data: bytes, top: int = 8) -> None:
             "(not measured)")
         return
     busy = sum(v[0] for v in by_name.values())
-    log(f"{name} profile: decode {wall_ms:.3f} ms (traced), kernels and copies "
+    log(f"{name} profile: call {wall_ms:.3f} ms (traced), kernels and copies "
         f"{busy:.3f} ms in {sum(v[1] for v in by_name.values())} device "
         f"ops, device idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for kname, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :top]:
         log(f"  {name} {ms:8.3f} ms {n:5d}x  {kname[:80]}")
+
+
+def max_lsb(a: np.ndarray, b: np.ndarray) -> int:
+    """max |a - b| of two u8 images; 256 where the shapes differ."""
+    if a.shape != b.shape:
+        return 256
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def alpha_exact(a: np.ndarray, b: np.ndarray) -> bool:
+    """The alpha channel of two [H, W, 4] images is equal (True without
+    one)."""
+    return a.shape[-1] != 4 or np.array_equal(a[..., 3], b[..., 3])
 
 
 def epf_passes(data: bytes) -> int:
@@ -600,7 +741,11 @@ def squeeze_row(name: str, captured) -> dict:
             f"{tuple(avg.shape)} residual {tuple(res.shape)}: equal to plain, "
             f"device warm {row['ms']:.4f} ms, cold {row['cold_ms']:.4f} ms, "
             f"bound {bound:.4f} ms ({by}), cold share of bound "
-            f"{bound / row['cold_ms']:.3f}, plain {row['plain_ms']:.2f} ms")
+            f"{bound / row['cold_ms']:.3f}, plain {row['plain_ms']:.2f} ms; "
+            f"dependency-chain estimate "
+            f"{squeeze_chain_estimate_ms(res, horizontal):.4f} ms (assumed "
+            f"{SQUEEZE_CHAIN_OPS} ops x {INT_OP_CYCLES} cycles a step at the "
+            f"highest SM clock, not read from this kernel's SASS)")
     out = {k: statistics.fmean(r[k] for r in rows)
            for k in ("ms", "cold_ms", "plain_ms", "bound_ms")}
     out["bound_by"] = rows[0]["bound_by"]
@@ -619,12 +764,9 @@ def phase_decode() -> tuple[dict, dict]:
     from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
     from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
 
-    tdir = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata")
     paths, squeeze_paths = {}, {}
     for name in FIXTURES:
-        with open(os.path.join(tdir, f"{name}.jxl"), "rb") as f:
-            data = f.read()
-        ref = np.load(os.path.join(tdir, f"{name}.npz"))["u8"]
+        data, ref = read_fixture(name)
         passes = epf_passes(data)
 
         # the counted run: launches of this decode only
@@ -636,11 +778,11 @@ def phase_decode() -> tuple[dict, dict]:
             u8, captured = em.capture_decode(data)
         launches = epf_step_cuda.launches
         squeeze_launches = sq.inv_squeeze_cuda.launches
-        diff = int(np.abs(u8.astype(np.int32) - ref.astype(np.int32)).max())
+        diff = max_lsb(u8, ref)
         log(f"{name}: {u8.shape}, max |u8 - reference| {diff}, EPF launches "
             f"{launches} (passes {passes}), squeeze launches "
             f"{squeeze_launches}")
-        if u8.shape != ref.shape or diff > 1:
+        if diff > 1 or not alpha_exact(u8, ref):
             raise AssertionError(f"{name}: decode differs from reference")
         if launches != passes:
             raise AssertionError(f"{name}: {launches} EPF launches, "
@@ -717,6 +859,214 @@ def phase_decode() -> tuple[dict, dict]:
     }, squeeze_paths
 
 
+def read_fixture(name: str) -> tuple[bytes, np.ndarray | None]:
+    """A committed stream and its reference u8 (None for the streams
+    committed without one)."""
+    tdir = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata")
+    with open(os.path.join(tdir, f"{name}.jxl"), "rb") as f:
+        data = f.read()
+    ref_path = os.path.join(tdir, f"{name}.npz")
+    ref = np.load(ref_path)["u8"] if os.path.exists(ref_path) else None
+    return data, ref
+
+
+def device_ops(run) -> collections.Counter:
+    """Device ops (kernels, copies, sets) of one call of run() in a
+    torch.profiler trace, counted by name; empty when the trace holds no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return collections.Counter(e.name for e in prof.events()
+                               if e.device_type == DeviceType.CUDA)
+
+
+def phase_serving(device) -> dict:
+    """The serving path (this slice's main path): one decode_batch_stacked
+    call over SERVING on `device`, held against the per-image decodes and
+    the references, its K1 launches counted; then timed. Returns K1's row
+    of the stacked path."""
+    import torch
+
+    from jxl_oxide_tpu_torch import JxlImage, decode_batch
+    from jxl_oxide_tpu_torch import decode_batch_stacked
+    from jxl_oxide_tpu_torch.ops.cuda import epf as kernel
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.vardct_pipeline import (
+        stack_inputs,
+        upload_inputs,
+    )
+    from jxl_oxide_tpu_torch.render.vardct import VardctFrameState
+
+    fixtures = {n: read_fixture(n) for n in dict.fromkeys(SERVING)}
+    streams = [fixtures[n][0] for n in SERVING]
+    mp = sum(img.width * img.height for img in (
+        JxlImage.from_bytes(d, device="cpu") for d in streams)) / 1e6
+    # the per-image decodes every stacked result is held against
+    def render(d):
+        return JxlImage.from_bytes(d, device=device).render_frame(0)
+
+    per_u8 = {n: render(d).to_u8() for n, (d, _) in fixtures.items()}
+    per_dev = {n: render(d).image_device() for n, (d, _) in fixtures.items()}
+    # K1 launches of the call: one per EPF pass of each stacked group (the
+    # flagship 8, the four alpha streams, the two 4:2:0 streams), and the
+    # per-image Modular stream's own passes
+    groups = ("flagship_1024", "flagship_alpha_1024", "ycbcr420_1024")
+    expected = (sum(epf_passes(fixtures[g][0]) for g in groups)
+                + epf_passes(fixtures["modular_xyb_512"][0]))
+
+    # the counted run; the 8-image group's EPF inputs are kept
+    captured = []
+
+    def keep(planes, sigma, step, cs, sm, bsm):
+        if planes.dim() == 4 and planes.shape[0] == 8:
+            captured.append((planes.clone(), sigma.clone(), step, cs, sm,
+                             bsm))
+
+    epf_step_cuda.launches = 0
+    sq.inv_squeeze_cuda.launches = 0
+    with watching(kernel, "epf_step_cuda", keep):
+        got = decode_batch_stacked(streams, output="u8", device=device)
+    launches = epf_step_cuda.launches
+    squeezes = sq.inv_squeeze_cuda.launches
+    log(f"serving: decode_batch_stacked of {len(streams)} streams: EPF "
+        f"launches {launches} (stacked groups' passes {expected}), squeeze "
+        f"launches {squeezes}")
+    if launches != expected:
+        raise AssertionError(f"serving: {launches} EPF launches, "
+                             f"{expected} wanted")
+
+    differing = 0
+    for name, img in zip(SERVING, got):
+        mine, ref = per_u8[name], fixtures[name][1]
+        if img.shape != mine.shape:
+            raise AssertionError(f"serving {name}: shape {img.shape}, "
+                                 f"per-image {mine.shape}")
+        differing += int((img != mine).any(axis=-1).sum())
+        if max_lsb(img, mine) > 1 or not alpha_exact(img, mine):
+            raise AssertionError(f"serving {name}: differs from the "
+                                 "per-image decode")
+        if ref is not None and (max_lsb(img, ref) > 1
+                                or not alpha_exact(img, ref)):
+            raise AssertionError(f"serving {name}: differs from reference")
+    got_dev = decode_batch_stacked(streams, output="device", device=device)
+    torch.cuda.synchronize()
+    dev_differing = 0
+    for name, t in zip(SERVING, got_dev):
+        if t.device != per_dev[name].device or t.shape != per_dev[name].shape:
+            raise AssertionError(f"serving {name}: output=device gave "
+                                 f"{t.device} {tuple(t.shape)}")
+        dev_differing += int((t != per_dev[name]).any(dim=-1).sum().item())
+    log(f"serving: u8 results against the per-image decodes: {differing} "
+        f"differing pixels; output=device: {dev_differing} differing "
+        "pixels; every fixture within 1 LSB of its reference, alpha exact")
+
+    # warm, median of 5
+    def timed(fn) -> float:
+        fn()
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    t_stacked = timed(lambda: decode_batch_stacked(streams, output="u8",
+                                                   device=device))
+    t_batch = timed(lambda: decode_batch(streams, output="u8",
+                                         device=device))
+    t_seq = timed(lambda: [render(d).to_u8() for d in streams])
+    log(f"serving {mp:.2f} MP in {len(streams)} streams, warm median of 5: "
+        f"decode_batch_stacked {t_stacked * 1e3:.2f} ms "
+        f"({mp / t_stacked:.2f} MP/s), decode_batch {t_batch * 1e3:.2f} ms "
+        f"({mp / t_batch:.2f} MP/s), sequential per-image "
+        f"{t_seq * 1e3:.2f} ms ({mp / t_seq:.2f} MP/s)")
+
+    profile_run("serving", lambda: decode_batch_stacked(
+        streams, output="u8", device=device), sum_spans=True)
+
+    # the 8-image flagship group against one image: host enqueue time and
+    # device ops of the stacked program alone
+    data = fixtures["flagship_1024"][0]
+    parts = []
+    for _ in range(8):
+        host = JxlImage.from_bytes(data, device=device)._host_stage(0)
+        parts.append(host.state.fused_program_parts(host.hf_global))
+    key, make_fn, _ = parts[0]
+    fn = VardctFrameState.program(key, make_fn, device)
+    row = {}
+    for n in (1, 8):
+        placed = upload_inputs(stack_inputs([p[2] for p in parts[:n]]),
+                               device)
+        fn.stacked(*placed)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn.stacked(*placed)
+            ts.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        row[n] = (statistics.median(ts) * 1e3,
+                  device_ops(lambda: fn.stacked(*placed)))
+    (e1, names1), (e8, names8) = row[1], row[8]
+    ops1, ops8 = sum(names1.values()) or None, sum(names8.values()) or None
+    log(f"serving: flagship stacked program, host enqueue {e8:.2f} ms for 8 "
+        f"images, {e1:.2f} ms for 1 (warm median of 5); torch.profiler "
+        f"device ops {ops8} for 8, {ops1} for 1")
+    for name in sorted(set(names1) | set(names8)):
+        if names1[name] != names8[name]:
+            log(f"  device op count 1 -> 8 images: {names1[name]} -> "
+                f"{names8[name]}  {name[:90]}")
+    if ops1 is None or ops8 is None:
+        log("serving: torch.profiler recorded no device ops (not measured)")
+    elif ops8 > 1.1 * ops1:
+        raise AssertionError(f"serving: {ops8} device ops for 8 images, "
+                             f"{ops1} for one")
+
+    # the stacked EPF passes of the counted run, on the card's clock
+    rows, errs = [], []
+    for planes, sigma, step, cs, sm, bsm in captured:
+        errs.append(check_kernel(planes, sigma, step, cs, sm, bsm))
+        r = time_pass(planes, sigma, step, cs, sm, bsm)
+        rows.append(r)
+        log(f"serving EPF step {step} {tuple(planes.shape)} "
+            f"{copy_path(planes)}: max|diff| {errs[-1]:.3g}, "
+            f"{pass_line(r)}")
+    if len(rows) != epf_passes(data):
+        raise AssertionError(f"serving: {len(rows)} stacked flagship "
+                             "passes captured")
+
+    def mean(k):
+        return statistics.fmean(r[k] for r in rows)
+
+    return {
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": mean("warm"),
+        "cold_ms": mean("cold"),
+        "host_us": mean("host_us"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": rows[0]["bound_by"],
+        "cold_share_of_bound": mean("bound_ms") / mean("cold"),
+        "stack": 8,
+        "differing_pixels": differing + dev_differing,
+        "mp_per_s": {"stacked": mp / t_stacked, "decode_batch": mp / t_batch,
+                     "sequential": mp / t_seq},
+        "enqueue_ms": {"1": e1, "8": e8},
+        "device_ops": {"1": ops1, "8": ops8},
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -741,9 +1091,12 @@ def main() -> int:
     phase_build()
     worst = phase_kernel(device)
     log(f"EPF kernel vs plain: worst max|diff| {worst:.3g} (atol {EPF_ATOL})")
+    worst = max(worst, phase_stack_kernel(device))
     pyramid = phase_squeeze(device)
     report, squeeze_paths = phase_decode()
-    report["max_abs_err"] = max(report["max_abs_err"], worst)
+    report["paths"]["stacked"] = phase_serving(device)
+    report["max_abs_err"] = max(report["max_abs_err"], worst,
+                                report["paths"]["stacked"]["max_abs_err"])
     squeeze = {
         "name": "inv_squeeze",
         "route": "cuda",

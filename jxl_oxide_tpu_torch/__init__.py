@@ -9,11 +9,17 @@ jxl_oxide_tpu, which stays beside it as the reference.
     JxlImage.from_bytes(data).render_frame(0).to_u8()
 
 decodes on CUDA by default and raises when there is none; pass
-device="cpu" to run the plain torch versions on the CPU. The envelope of
-this slice is one 4:4:4 VarDCT keyframe (see ROADMAP.md).
+device="cpu" to run the plain torch versions on the CPU.
+decode_batch, decode_iter and decode_batch_stacked (serving.py) decode
+many streams at once; the last runs same-geometry VarDCT streams as one
+stacked program. The envelope: one keyframe, VarDCT (4:4:4 or chroma-
+subsampled) or lossless Modular, an optional integer alpha, any EXIF
+orientation (see ROADMAP.md).
 """
 
 from .api import JxlImage, Render
+from .serving import decode_batch, decode_batch_stacked, decode_iter
 from .utils.errors import JxlError, JxlNotSupportedError
 
-__all__ = ["JxlImage", "Render", "JxlError", "JxlNotSupportedError"]
+__all__ = ["JxlImage", "Render", "JxlError", "JxlNotSupportedError",
+           "decode_batch", "decode_batch_stacked", "decode_iter"]

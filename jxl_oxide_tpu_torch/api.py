@@ -6,17 +6,19 @@ the port's envelope. Container and header parsing is a copy of the JAX
 package's (host-side); `render_frame(0)` runs the host entropy stage of
 one keyframe, then its device stage.
   - VarDCT: the host stage is the sequence of jxl_oxide_tpu/serving.py
-    `_host_stage_fast`; the device stage the fused 4:4:4 program, the
-    fused chroma-subsampled program or the staged path (render/vardct.py,
-    ops/vardct_pipeline.py) and the render tail.
+    `_host_stage_fast`, its alpha leg included (the frame's modular
+    sub-streams decode beside the HF sections); the device stage the
+    fused 4:4:4 program, the fused chroma-subsampled program or the staged
+    path (render/vardct.py, ops/vardct_pipeline.py) and the render tail.
   - Modular: the host stage decodes the sections (render/frame.py) and
     runs the inverse transforms when the gate keeps them on the host; the
     device stage runs them otherwise (models/modular.py, the squeeze as a
     CUDA kernel), then the render tail (render/render.py).
 Then YCbCr -> RGB for YCbCr frames and the color tail; the EPF is a CUDA
-kernel on both. Streams outside the envelope raise JxlNotSupportedError
-naming the ROADMAP item that will port them; none decodes through a
-hidden path.
+kernel on both. An alpha channel passes through unfiltered, and the
+render tail applies the EXIF orientation (1-8) before the interleave.
+Streams outside the envelope raise JxlNotSupportedError naming the
+ROADMAP item that will port them; none decodes through a hidden path.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from .headers.frame import Encoding
 from .headers.image import (
     ColourEncoding,
     ColourSpace,
+    ExtraChannelType,
     ImageHeader,
 )
 from .io.bitstream import Bitstream
@@ -48,11 +51,38 @@ from .utils.trace import span, traced
 __all__ = ["JxlImage", "Render"]
 
 
-def _finalize(planes: list, scale: float | None, dtype) -> torch.Tensor:
-    """Render tail (jxl_oxide_tpu/api.py::_finalize_fn at orientation 1):
-    interleave to [H, W, C], then clamp(round(x * scale), 0, scale).
-    torch.round rounds half to even, as jnp.round does."""
-    img = torch.stack(planes, dim=-1)
+def _apply_orientation(plane: torch.Tensor, orientation: int) -> torch.Tensor:
+    """EXIF orientation 1-8 (region.rs apply_orientation; the JAX package's
+    api.py _apply_orientation) on the last two axes of [..., H, W], so a
+    stack of images turns as one."""
+    if orientation == 1:
+        return plane
+    if orientation == 2:
+        return plane.flip(-1)
+    if orientation == 3:
+        return plane.flip(-2, -1)
+    if orientation == 4:
+        return plane.flip(-2)
+    t = plane.transpose(-2, -1)
+    if orientation == 5:
+        return t
+    if orientation == 6:
+        return t.flip(-1)
+    if orientation == 7:
+        return t.flip(-2, -1)
+    if orientation == 8:
+        return t.flip(-2)
+    raise JxlValidationError(f"invalid orientation {orientation}")
+
+
+def _finalize(chans: list, orientation: int, scale: float | None,
+              dtype) -> torch.Tensor:
+    """Render tail (jxl_oxide_tpu/api.py::_finalize_fn): orientation, then
+    interleave [..., H, W] planes to [..., H, W, C], then
+    clamp(round(x * scale), 0, scale). torch.round rounds half to even, as
+    jnp.round does."""
+    img = torch.stack([_apply_orientation(p, orientation) for p in chans],
+                      dim=-1)
     if scale is not None:
         img = torch.clamp(torch.round(img * scale), 0, scale).to(dtype)
     return img
@@ -60,28 +90,60 @@ def _finalize(planes: list, scale: float | None, dtype) -> torch.Tensor:
 
 @dataclass
 class Render:
-    """A rendered keyframe in the requested color encoding: three
-    [H, W] float32 planes on the decode device."""
+    """A rendered keyframe in the requested color encoding: three [H, W]
+    float32 colour planes and one plane per extra channel, on the decode
+    device, in the coded orientation; every pixel output applies
+    `orientation`."""
 
-    planes: list
+    planes: list        # colour planes after the colour transform
+    extra: list         # extra channel planes, unfiltered
+    ec_info: list       # ExtraChannelInfo of each extra channel
+    orientation: int
     name: str
     duration: int
 
+    def _output_chans(self) -> list:
+        """Colour planes + the first ALPHA extra channel, if any,
+        un-oriented (jxl_oxide_tpu/api.py Render._output_chans)."""
+        chans = list(self.planes)
+        for info, ec in zip(self.ec_info, self.extra):
+            if info.ty == ExtraChannelType.ALPHA:
+                chans.append(ec)
+                break
+        return chans
+
+    def image_planar(self) -> list:
+        """Colour planes with the orientation applied."""
+        return [_apply_orientation(p, self.orientation) for p in self.planes]
+
+    def image_all_channels(self) -> np.ndarray:
+        """[H, W, C] float32: colour and every extra channel, oriented."""
+        return _finalize([*self.planes, *self.extra], self.orientation, None,
+                         None).cpu().numpy()
+
     def image_device(self) -> torch.Tensor:
-        """[H, W, 3] float32 on the decode device (no host readback)."""
-        return _finalize(self.planes, None, None)
+        """[H, W, C] float32 on the decode device (no host readback):
+        colour, then alpha if the image has one, oriented."""
+        return _finalize(self._output_chans(), self.orientation, None, None)
 
     def image(self) -> np.ndarray:
-        """[H, W, 3] float32 on the host."""
+        """[H, W, C] float32 on the host: colour (+ alpha)."""
         return self.image_device().cpu().numpy()
 
     def to_u8(self) -> np.ndarray:
-        return _finalize(self.planes, 255.0, torch.uint8).cpu().numpy()
+        """[H, W, C] uint8: colour (+ alpha), oriented."""
+        return _finalize(self._output_chans(), self.orientation, 255.0,
+                         torch.uint8).cpu().numpy()
 
     def to_u16(self) -> np.ndarray:
         # no uint16 arithmetic in torch: quantize in int32, narrow on host
-        q = _finalize(self.planes, 65535.0, torch.int32).cpu().numpy()
-        return q.astype(np.uint16)
+        q = _finalize(self._output_chans(), self.orientation, 65535.0,
+                      torch.int32)
+        return q.cpu().numpy().astype(np.uint16)
+
+    def stream(self):
+        raise JxlNotSupportedError(
+            "ImageStream is not ported yet (ROADMAP Queue 1 item 9)")
 
 
 @dataclass
@@ -92,6 +154,8 @@ class HostStage:
     state: object       # render.vardct.VardctFrameState
     hf_global: object   # render.vardct.HfGlobal
     frame: Frame
+    # the alpha channel's integer samples (numpy), or None
+    alpha: np.ndarray | None = None
 
 
 @dataclass
@@ -253,11 +317,16 @@ class JxlImage:
 
     @property
     def width(self) -> int:
-        return self.image_header.size.width
+        """Width as displayed: orientations 5-8 swap the coded axes."""
+        size = self.image_header.size
+        return (size.height if self.image_header.metadata.orientation >= 5
+                else size.width)
 
     @property
     def height(self) -> int:
-        return self.image_header.size.height
+        size = self.image_header.size
+        return (size.width if self.image_header.metadata.orientation >= 5
+                else size.height)
 
     @property
     def num_frames(self) -> int:
@@ -270,20 +339,26 @@ class JxlImage:
     # -- rendering ----------------------------------------------------------
 
     def _check_envelope(self, keyframe_idx: int) -> Frame:
-        """The port's envelope: one keyframe with no extra channels,
-        features, upsampling or LF frame, orientation 1, and an XYB or enum
-        sRGB/linear RGB colour encoding (so three colour channels); VarDCT
-        4:4:4 or chroma-subsampled YCbCr (4:2:0, 4:2:2, 4:4:0), or Modular
-        (4:4:4 YCbCr included) with integer or float samples. Anything
-        else raises JxlNotSupportedError naming the ROADMAP item that will
-        port it."""
+        """The port's envelope: one keyframe with no features, upsampling
+        or LF frame, any EXIF orientation, at most one extra channel (an
+        alpha with integer samples at full resolution: the JAX package's
+        stacked-serving envelope, jxl_oxide_tpu/serving.py:121-126), and
+        an XYB or enum sRGB/linear RGB colour encoding (so three colour
+        channels); VarDCT 4:4:4 or chroma-subsampled YCbCr (4:2:0, 4:2:2,
+        4:4:0), or Modular (4:4:4 YCbCr included) with integer or float
+        samples. Anything else raises JxlNotSupportedError naming the
+        ROADMAP item that will port it."""
         meta = self.image_header.metadata
         if keyframe_idx != 0 or self.num_keyframes != 1 or len(self._frames) != 1:
             raise _not_supported("multi-frame streams and animation", 9)
-        if meta.ec_info:
-            raise _not_supported("extra channels (alpha included)", 17)
-        if meta.orientation != 1:
-            raise _not_supported("EXIF orientation other than 1", 16)
+        if len(meta.ec_info) > 1 or any(
+                info.ty != ExtraChannelType.ALPHA or info.bit_depth.is_float
+                for info in meta.ec_info):
+            raise _not_supported(
+                "extra channels other than one integer alpha (spot colours, "
+                "float alpha and other types)", 17)
+        if any(info.dim_shift for info in meta.ec_info):
+            raise _not_supported("alpha at a lower resolution (dim_shift)", 9)
         ce = meta.colour_encoding
         if not meta.xyb_encoded and (
             ce.want_icc
@@ -303,6 +378,7 @@ class JxlImage:
             raise _not_supported("chroma-subsampled YCbCr Modular frames", 7)
         if (
             header.upsampling != 1
+            or any(u != 1 for u in header.ec_upsampling)
             or header.lf_level != 0
             or header.flags.use_lf_frame
             or header.flags.patches
@@ -314,19 +390,19 @@ class JxlImage:
             or header.sample_height() != self.image_header.size.height
         ):
             raise _not_supported(
-                "upsampling, LF frames, patches/splines/noise and cropped "
-                "frames", 9
+                "upsampling (EC upsampling included), LF frames, "
+                "patches/splines/noise and cropped frames", 9
             )
         return fr
 
     @traced("Host entropy stage")
     def _host_stage(self, keyframe_idx: int = 0):
         """Headers of the frame's sections plus the C++ entropy decode: into
-        whole-frame coefficient planes for a VarDCT frame
-        (jxl_oxide_tpu/serving.py `_host_stage_fast`, without the alpha
-        leg), into the Modular channel slots for a Modular frame, whose
-        inverse transforms run here when the gate keeps them on the host.
-        Returns a HostStage or a ModularHostStage."""
+        whole-frame coefficient planes and the alpha channel for a VarDCT
+        frame (jxl_oxide_tpu/serving.py `_host_stage_fast`), into the
+        Modular channel slots for a Modular frame, whose inverse
+        transforms run here when the gate keeps them on the host. Returns a
+        HostStage or a ModularHostStage."""
         fr = self._check_envelope(keyframe_idx)
         # the decode's device decides whether the modular tail may leave the
         # host (utils/options.py), for the frame and its group sub-images
@@ -355,19 +431,28 @@ class JxlImage:
         header = fr.header
         lf_global = fr.parse_lf_global()
         gmod = lf_global.gmodular
-        if gmod.modular is not None:
-            raise _not_supported("VarDCT frames with modular channels", 17)
-        mlf_groups, pass_groups = {}, [{}]
+        # a VarDCT frame's modular image holds its extra channels only (the
+        # envelope: one alpha); its sub-streams follow the LF and HF data
+        # of the sections (jxl-frame pass_group.rs:139)
+        modular = gmod.modular
+        if modular is not None:
+            mlf_groups, pass_groups = modular.prepare_groups(fr.pass_shifts)
+        else:
+            mlf_groups, pass_groups = {}, [{}]
+
+        def sub_of(p, g):
+            return pass_groups[p].get(g) if p < len(pass_groups) else None
 
         state = VardctFrameState(fr)
         if fr.toc.is_single_entry:
             bs = fr._single_bs
             state.place_lf_group(0, parse_lf_group(
-                bs, fr.image_header, header, lf_global, 0, None
+                bs, fr.image_header, header, lf_global, 0, mlf_groups.get(0)
             ))
             hf_global = HfGlobal(bs, fr.image_header, header, lf_global)
             for p in range(header.passes.num_passes):
                 state.decode_pass_group_hf(bs, hf_global, p, 0)
+                fr._decode_pass_group(bs, p, 0, sub_of(p, 0), gmod)
         else:
             lf_jobs = list(range(header.num_lf_groups))
             done = _decode_lf_groups_batch(fr, state, lf_global, lf_jobs,
@@ -377,7 +462,8 @@ class JxlImage:
                     fr.section_bytes(fr.toc.entry_for("lf_group", lf_idx))
                 )
                 state.place_lf_group(lf_idx, parse_lf_group(
-                    bs, fr.image_header, header, lf_global, lf_idx, None,
+                    bs, fr.image_header, header, lf_global, lf_idx,
+                    mlf_groups.get(lf_idx),
                 ))
             bs = Bitstream(fr.section_bytes(fr.toc.entry_for("hf_global")))
             hf_global = HfGlobal(bs, fr.image_header, header, lf_global)
@@ -394,7 +480,11 @@ class JxlImage:
                         fr.section_bytes(fr.toc.entry_for("group_pass", g, p))
                     )
                     state.decode_pass_group_hf(bs, hf_global, p, g)
-        return HostStage(state, hf_global, fr)
+                    fr._decode_pass_group(bs, p, g, sub_of(p, g), gmod)
+        alpha = None
+        if modular is not None:
+            alpha = modular.finish()[gmod.extra_channel_from]
+        return HostStage(state, hf_global, fr, alpha)
 
     def _color_transform(self):
         from .color.convert import ColorTransform
@@ -417,9 +507,11 @@ class JxlImage:
         4:4:4 program, the fused subsampled program or the staged path,
         then the render tail. Modular: the inverse transforms on the device
         when the host did not run them, then the render tail. Then YCbCr ->
-        RGB for a YCbCr frame and the color tail. Returns three [H, W]
-        float32 planes on self.device."""
+        RGB for a YCbCr frame and the color tail. Returns the three [H, W]
+        float32 colour planes, then one plane per extra channel, on
+        self.device."""
         from .ops.color import ycbcr_to_rgb
+        from .render.render import extra_channel_planes
 
         if isinstance(host, ModularHostStage):
             from .render.render import render_modular_tail
@@ -431,7 +523,8 @@ class JxlImage:
                 with use_decode_device(self.device), span("Modular tail"):
                     # float samples are converted on the host
                     chans = host.modular.finish(to_device=not float_samples)
-            planes = render_modular_tail(host.frame, chans, self.device)
+            planes, extra = render_modular_tail(host.frame, chans,
+                                                self.device)
         else:
             from .render.render import render_vardct_tail
             from .render.vardct import decode_vardct_planes
@@ -440,16 +533,28 @@ class JxlImage:
             planes = decode_vardct_planes(state, host.hf_global, self.device)
             state.trim_coeff_planes()
             planes = render_vardct_tail(state, planes)
+            extra = [] if host.alpha is None else extra_channel_planes(
+                [host.alpha], self.image_header.metadata.ec_info,
+                planes[0].device)
         if host.frame.header.do_ycbcr:
             planes = list(ycbcr_to_rgb(planes[0], planes[1], planes[2]))
         tr = self._color_transform()
         if not tr.is_noop:
             with span("Transform to requested color encoding"):
                 planes = list(tr.run(planes))
-        return planes
+        return [*planes, *extra]
 
     def render_frame(self, keyframe_idx: int = 0) -> Render:
         host = self._host_stage(keyframe_idx)
-        planes = self._device_stage(host)
+        chans = self._device_stage(host)
         h = host.frame.header
-        return Render(planes=planes, name=h.name, duration=h.duration)
+        meta = self.image_header.metadata
+        return Render(planes=chans[:3], extra=chans[3:],
+                      ec_info=list(meta.ec_info),
+                      orientation=meta.orientation, name=h.name,
+                      duration=h.duration)
+
+    def render_frame_cropped(self, *args, **kwargs):
+        raise JxlNotSupportedError(
+            "region-of-interest decode is not ported yet (ROADMAP Queue 1 "
+            "item 14)")

@@ -324,7 +324,9 @@ class ColorTransform:
 
     def run(self, planes: list):
         """Apply the op list to planar float32 torch tensors; returns
-        planes. Runs eagerly on the planes' device."""
+        planes. Runs eagerly on the planes' device. Every op is pointwise,
+        so a plane may be one image's [H, W] or a stack's [N, H, W]
+        (serving.py runs one transform over a whole stack)."""
         return self._apply_ops([p.to(torch.float32) for p in planes])
 
     def _apply_ops(self, planes: list):

@@ -1,10 +1,12 @@
 """Wrapper of the hand-written CUDA EPF kernel (csrc/epf.cu).
 
 Replaces jxl_oxide_tpu/ops/pallas/epf.py (the Pallas TPU kernel
-_epf_tile_kernel, public epf_step_pallas); same contract as
-ops/filters.py::epf_step. For a tensor on the CPU the wrapper runs that
-plain version; for a CUDA tensor it launches the kernel on the current
-stream or raises. It never falls back from the card to the CPU.
+_epf_tile_kernel, public epf_step_pallas, which the JAX package's stacked
+serving path vmaps); same contract as ops/filters.py::epf_step, on one
+image [3, H, W] or a stack [N, 3, H, W] in one launch. For a tensor on
+the CPU the wrapper runs that plain version; for a CUDA tensor it
+launches the kernel on the current stream or raises. It never falls back
+from the card to the CPU.
 
 The kernel is bound by the pass's 28 B/px of device memory traffic: one
 persistent block per SM walks 64x64 tiles through a two-stage
@@ -30,19 +32,31 @@ from . import build
 __all__ = ["bind", "epf_step_cuda", "kernel_params", "launch"]
 
 
+_FLOATS = [ctypes.c_float] * 6
+
+
 def bind(lib: ctypes.CDLL):
-    """The C entry jxl_epf_step of a built EPF library, its argument types
-    set."""
-    fn = lib.jxl_epf_step
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+    """The C entry jxl_epf_step_batched of a built EPF library, its
+    argument types set: (in, sigma, out, images, height, width, step,
+    six floats, stream). A library of an earlier version of the kernel has
+    only the one-image entry jxl_epf_step; it is bound behind the same
+    signature and takes images == 1 only (tools/epf_variants.py)."""
+    ptrs = [ctypes.c_void_p] * 3
+    if hasattr(lib, "jxl_epf_step_batched"):
+        fn = lib.jxl_epf_step_batched
+        fn.argtypes = [*ptrs, *[ctypes.c_int] * 4, *_FLOATS, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return fn
+    one = lib.jxl_epf_step
+    one.argtypes = [*ptrs, *[ctypes.c_int] * 3, *_FLOATS, ctypes.c_void_p]
+    one.restype = ctypes.c_int
+
+    def batched(inp, sigma, out, images, *rest):
+        if images != 1:
+            raise ValueError("this EPF library takes one image per launch")
+        return one(inp, sigma, out, *rest)
+
+    return batched
 
 
 @functools.cache
@@ -53,7 +67,7 @@ def _fn():
 @functools.lru_cache(maxsize=64)
 def kernel_params(channel_scale: tuple, step_multiplier: float,
                   border_sad_mul: float) -> tuple:
-    """The float arguments of the C entry jxl_epf_step, (cs0, cs1, cs2,
+    """The float arguments of the C entry jxl_epf_step_batched, (cs0, cs1, cs2,
     sm_border, sm_plain, neg_k), each rounded to float32 as epf_step
     rounds it."""
     cs = [float(np.float32(v)) for v in channel_scale]
@@ -69,11 +83,13 @@ def launch(fn, planes: torch.Tensor, sigma: torch.Tensor, out: torch.Tensor,
            step: int, channel_scale, step_multiplier: float,
            border_sad_mul: float) -> None:
     """One launch of `fn` (from `bind`) on contiguous float32 CUDA tensors,
-    into `out`, on the current stream. No checks and no launch count: the
-    caller has made both."""
-    _, h, w = planes.shape
+    planes [3, H, W] or [N, 3, H, W], into `out`, on the current stream.
+    No checks and no launch count: the caller has made both."""
+    h, w = planes.shape[-2:]
+    images = planes.shape[0] if planes.dim() == 4 else 1
     err = fn(
-        planes.data_ptr(), sigma.data_ptr(), out.data_ptr(), h, w, step,
+        planes.data_ptr(), sigma.data_ptr(), out.data_ptr(), images, h, w,
+        step,
         *kernel_params(tuple(channel_scale), float(step_multiplier),
                        float(border_sad_mul)),
         # the current stream's handle; torch.cuda.current_stream() builds a
@@ -87,10 +103,12 @@ def launch(fn, planes: torch.Tensor, sigma: torch.Tensor, out: torch.Tensor,
 def epf_step_cuda(planes: torch.Tensor, sigma: torch.Tensor, step: int,
                   channel_scale, step_multiplier: float,
                   border_sad_mul: float) -> torch.Tensor:
-    """One EPF pass: planes [3, H, W] float32, sigma [H, W] float32.
+    """One EPF pass: planes [3, H, W] float32 with sigma [H, W] float32,
+    or a stack of N images, planes [N, 3, H, W] with sigma [N, H, W].
 
     CPU tensors take the plain torch `epf_step`; CUDA tensors launch the
-    kernel (one launch, counted in `epf_step_cuda.launches`)."""
+    kernel: one launch whatever N is, counted once in
+    `epf_step_cuda.launches` (launches, not images)."""
     if planes.device.type == "cpu" and sigma.device.type == "cpu":
         return epf_step(planes, sigma, step, tuple(channel_scale),
                         step_multiplier, border_sad_mul)
@@ -103,13 +121,18 @@ def epf_step_cuda(planes: torch.Tensor, sigma: torch.Tensor, step: int,
         raise ValueError(f"EPF step {step} (0, 1 or 2)")
     if planes.dtype != torch.float32 or sigma.dtype != torch.float32:
         raise TypeError("epf_step_cuda takes float32 planes and sigma")
-    if planes.dim() != 3 or planes.shape[0] != 3:
-        raise ValueError(f"planes must be [3, H, W], got {tuple(planes.shape)}")
-    _, h, w = planes.shape
-    if tuple(sigma.shape) != (h, w):
-        raise ValueError(f"sigma {tuple(sigma.shape)} != planes {(h, w)}")
+    if planes.dim() not in (3, 4) or planes.shape[-3] != 3:
+        raise ValueError("planes must be [3, H, W] or [N, 3, H, W], got "
+                         f"{tuple(planes.shape)}")
+    lead = tuple(planes.shape[:-3])
+    h, w = planes.shape[-2:]
+    if tuple(sigma.shape) != (*lead, h, w):
+        raise ValueError(f"sigma {tuple(sigma.shape)} does not match planes "
+                         f"{tuple(planes.shape)}")
     if h * w >= 1 << 31:
         raise ValueError("plane too large for the kernel's int indexing")
+    if (lead[0] if lead else 1) * -(-h // 64) * -(-w // 64) > 1 << 30:
+        raise ValueError("stack too large for the kernel's tile count")
     planes = planes.contiguous()
     sigma = sigma.contiguous()
     out = torch.empty_like(planes)

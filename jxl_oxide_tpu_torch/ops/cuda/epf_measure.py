@@ -74,9 +74,9 @@ def bound_ms(sigma: torch.Tensor, step: int) -> tuple[float, str]:
     """Least time of one pass on these inputs: the bytes (3 planes and
     sigma read once, 3 planes written once) over the HBM rate, against
     the operations that the data needs (pixels with sigma < 0.3 pass
-    through) over the fp32 peak; and which of the two it is."""
-    h, w = sigma.shape
-    byte_ms = BYTES_PER_PIXEL * h * w / HBM_BYTES_PER_S * 1e3
+    through) over the fp32 peak; and which of the two it is. sigma is
+    one image's [H, W] or a stack's [N, H, W]."""
+    byte_ms = BYTES_PER_PIXEL * sigma.numel() / HBM_BYTES_PER_S * 1e3
     active = int((sigma >= 0.3).sum().item())
     op_ms = ops_per_pixel(step) * active / FP32_FLOPS * 1e3
     return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
@@ -89,8 +89,8 @@ def input_sets(planes: torch.Tensor, sigma: torch.Tensor, cold: bool):
     copies that between two uses of one copy the other launches move at
     least twice the 50 MB L2. (A pass at 3x2048^2 moves more than the L2
     holds, so warm is not warm there.)"""
-    _, h, w = planes.shape
-    copies = 1 + math.ceil(2 * L2_BYTES / (BYTES_PER_PIXEL * h * w))
+    pixels = planes.numel() // 3
+    copies = 1 + math.ceil(2 * L2_BYTES / (BYTES_PER_PIXEL * pixels))
     sets = [(planes, sigma, torch.empty_like(planes))]
     for _ in range(copies - 1 if cold else 0):
         sets.append((planes.clone(), sigma.clone(), torch.empty_like(planes)))

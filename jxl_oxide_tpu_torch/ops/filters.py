@@ -46,7 +46,8 @@ EPF_NEG_K = np.float32(6.6) * (np.float32(1.0 / np.sqrt(2.0)) - np.float32(1.0))
 
 def gabor(plane: torch.Tensor, weights: tuple, prepad_rows: int = 0,
           prepad_cols: int = 0) -> torch.Tensor:
-    """3x3 self-correlation smoothing (gabor.rs:8-121), one [H, W] channel.
+    """3x3 self-correlation smoothing (gabor.rs:8-121) of one channel,
+    [H, W] or a stack [N, H, W] of one channel of N images.
 
     weights = (w0, w1): side and diagonal weights; kernel is
     [[w1 w0 w1], [w0 1 w0], [w1 w0 w1]] / (1 + 4*w0 + 4*w1),
@@ -58,16 +59,18 @@ def gabor(plane: torch.Tensor, weights: tuple, prepad_rows: int = 0,
             "gabor halo forms are not ported yet (ROADMAP Queue 1 item 13)"
         )
     w0, w1 = weights
-    p = F.pad(plane[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
-    c = p[1:-1, 1:-1]
-    n = p[:-2, 1:-1]
-    s = p[2:, 1:-1]
-    w = p[1:-1, :-2]
-    e = p[1:-1, 2:]
-    nw = p[:-2, :-2]
-    ne = p[:-2, 2:]
-    sw = p[2:, :-2]
-    se = p[2:, 2:]
+    h, w = plane.shape[-2:]
+    p = F.pad(plane.reshape(-1, 1, h, w), (1, 1, 1, 1), mode="replicate")
+    p = p.reshape(*plane.shape[:-2], h + 2, w + 2)
+    c = p[..., 1:-1, 1:-1]
+    n = p[..., :-2, 1:-1]
+    s = p[..., 2:, 1:-1]
+    w = p[..., 1:-1, :-2]
+    e = p[..., 1:-1, 2:]
+    nw = p[..., :-2, :-2]
+    ne = p[..., :-2, 2:]
+    sw = p[..., 2:, :-2]
+    se = p[..., 2:, 2:]
     total = c + (n + s + w + e) * w0 + (nw + ne + sw + se) * w1
     return total * float(np.float32(1.0 / (1.0 + 4.0 * w0 + 4.0 * w1)))
 
@@ -81,10 +84,10 @@ def mirror_index(n: int, pad: int, device) -> torch.Tensor:
 
 
 def _symmetric_pad(planes: torch.Tensor, pad: int) -> torch.Tensor:
-    _, h, w = planes.shape
+    h, w = planes.shape[-2:]
     rows = mirror_index(h, pad, planes.device)
     cols = mirror_index(w, pad, planes.device)
-    return planes[:, rows][:, :, cols]
+    return planes[..., rows, :][..., cols]
 
 
 def epf_step(planes: torch.Tensor, sigma: torch.Tensor, step: int,
@@ -93,20 +96,24 @@ def epf_step(planes: torch.Tensor, sigma: torch.Tensor, step: int,
              prepad_cols: int = 0) -> torch.Tensor:
     """One EPF pass over the 3 color planes (impls/generic/epf.rs).
 
-    planes: [3, H, W] float32; sigma: [H, W] per-pixel sigma (expanded
-    from the per-8x8-block grid). Returns filtered [3, H, W]. The prepad
-    (shard halo) forms belong to the multi-device slice (ROADMAP Queue 1
-    item 13) and raise for now.
+    planes: [3, H, W] float32, or a stack [N, 3, H, W] of N images;
+    sigma: [H, W] (or [N, H, W]) per-pixel sigma, expanded from the
+    per-8x8-block grid. Returns the filtered planes in the planes' shape.
+    A stack is one set of ops over the leading axis, whatever N is, and
+    each image's result is that of its own pass bit for bit (every op is
+    elementwise or a gather within the image). The prepad (shard halo)
+    forms belong to the multi-device slice (ROADMAP Queue 1 item 13) and
+    raise for now.
     """
     if prepad_rows or prepad_cols:
         raise NotImplementedError(
             "EPF halo forms are not ported yet (ROADMAP Queue 1 item 13)"
         )
-    _, h, w = planes.shape
+    h, w = planes.shape[-2:]
     padded = _symmetric_pad(planes, PAD)
 
     def shift(pc, dx, dy):
-        return pc[PAD + dy : PAD + dy + h, PAD + dx : PAD + dx + w]
+        return pc[..., PAD + dy : PAD + dy + h, PAD + dx : PAD + dx + w]
 
     # step multiplier pattern: border rows (y%8 in {0,7}) scale everything;
     # otherwise border columns (x%8 in {0,7}) scale (epf.rs:29-43).
@@ -124,14 +131,14 @@ def epf_step(planes: torch.Tensor, sigma: torch.Tensor, step: int,
     neg_inv_sigma = (float(EPF_NEG_K) / sigma) * sm
 
     center = planes
-    sum_weights = torch.ones((h, w), dtype=torch.float32, device=dev)
-    sum_channels = [center[c].clone() for c in range(3)]
+    sum_weights = torch.ones(sigma.shape, dtype=torch.float32, device=dev)
+    sum_channels = [center[..., c, :, :].clone() for c in range(3)]
     cs = [float(np.float32(v)) for v in channel_scale]
     for kx, ky in _EPF_KERNEL[step]:
-        dist = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        dist = torch.zeros(sigma.shape, dtype=torch.float32, device=dev)
         for c in range(3):
-            acc = torch.zeros((h, w), dtype=torch.float32, device=dev)
-            pc = padded[c]
+            acc = torch.zeros(sigma.shape, dtype=torch.float32, device=dev)
+            pc = padded[..., c, :, :]
             for ix, iy in _EPF_DIST[step]:
                 a = shift(pc, kx + ix, ky + iy)
                 b = shift(pc, ix, iy)
@@ -140,12 +147,13 @@ def epf_step(planes: torch.Tensor, sigma: torch.Tensor, step: int,
         weight = torch.clamp_min(1.0 + dist * neg_inv_sigma, 0.0)
         sum_weights = sum_weights + weight
         for c in range(3):
-            sum_channels[c] = sum_channels[c] + weight * shift(padded[c], kx, ky)
+            sum_channels[c] = (sum_channels[c]
+                               + weight * shift(padded[..., c, :, :], kx, ky))
 
-    filtered = torch.stack(sum_channels) / sum_weights[None]
+    filtered = torch.stack(sum_channels, dim=-3) / sum_weights[..., None, :, :]
     # sigma < 0.3: passthrough (epf.rs:64-69)
     keep = sigma < 0.3
-    return torch.where(keep[None], center, filtered)
+    return torch.where(keep[..., None, :, :], center, filtered)
 
 
 def sigma_map_from_blocks(sigma_blocks: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -155,14 +163,17 @@ def sigma_map_from_blocks(sigma_blocks: np.ndarray, h: int, w: int) -> np.ndarra
 
 
 def apply_gabor(planes, weights3) -> list:
-    """Gaborish on the 3 color planes with per-channel weights."""
+    """Gaborish on the 3 color planes with per-channel weights; each plane
+    [H, W], or [N, H, W] for a stack."""
     return [gabor(p, tuple(w)) for p, w in zip(planes, weights3)]
 
 
 def apply_epf(planes, sigma: torch.Tensor, epf_params) -> torch.Tensor:
     """Full EPF: steps selected by iters (filter/epf.rs:45-88), each one
-    pass of the kernel's wrapper. planes: [3, H, W] tensor or three
-    [H, W] planes; sigma: [H, W] float32 on the planes' device."""
+    pass of the kernel's wrapper. planes: a [3, H, W] tensor or three
+    [H, W] planes with sigma [H, W], or a stack [N, 3, H, W] with sigma
+    [N, H, W] (one launch per pass for the whole stack); sigma float32 on
+    the planes' device."""
     from .cuda import epf as kernel
 
     x = planes if isinstance(planes, torch.Tensor) else torch.stack(

@@ -40,6 +40,7 @@ __all__ = [
     "gather_blocks",
     "scatter_blocks",
     "transform_buckets",
+    "stack_inputs",
     "upload_inputs",
 ]
 
@@ -58,20 +59,24 @@ def _bias(coeff, qb, qbn: float):
 
 
 def _sparse_to_dense(coeff, shape):
-    """The dense int32 plane of a sparse upload: (flat_idx [N] i32 — or u16
-    index DELTAS, which arrive as an int16 view and are rebuilt by a
-    cumsum — and values [N] i8/i16/i32), ascending-unique, padded with
-    out-of-bounds indices. torch has no "drop" scatter mode: the pads are
-    redirected to one spare slot past the plane."""
+    """The dense int32 planes of a stack of sparse uploads: per image
+    (flat_idx [S] i32 — or u16 index DELTAS, which arrive as an int16 view
+    and are rebuilt by a cumsum — and values [S] i8/i16/i32), ascending-
+    unique, padded with out-of-bounds indices; the pair stacked to [B, S].
+    Returns [B, *shape]. torch has no "drop" scatter mode: each image's
+    pads are redirected to one spare slot past its plane."""
     c_idx, c_val = coeff
     if c_idx.dtype == torch.int16:
-        c_idx = torch.cumsum(c_idx.to(torch.int32) & 0xFFFF, 0) - 1
+        c_idx = torch.cumsum(c_idx.to(torch.int32) & 0xFFFF, -1) - 1
     n = int(np.prod(shape))
+    b = c_idx.shape[0]
     c_idx = torch.where(c_idx < n, c_idx.to(torch.int64),
                         torch.full((), n, device=c_idx.device))
-    dense = torch.zeros((n + 1,), dtype=torch.int32, device=c_idx.device)
-    dense.index_put_((c_idx,), c_val.to(torch.int32))
-    return dense[:n].reshape(shape)
+    c_idx = c_idx + torch.arange(b, device=c_idx.device)[:, None] * (n + 1)
+    dense = torch.zeros((b * (n + 1),), dtype=torch.int32,
+                        device=c_idx.device)
+    dense.index_put_((c_idx.reshape(-1),), c_val.reshape(-1).to(torch.int32))
+    return dense.reshape(b, n + 1)[:, :n].reshape(b, *shape)
 
 
 def adaptive_lf_smoothing(lf_x, lf_y, lf_b, lf_scale):
@@ -80,7 +85,9 @@ def adaptive_lf_smoothing(lf_x, lf_y, lf_b, lf_scale):
     Interior pixels get a 3x3 weighted average gated by the per-channel
     quantization step (lf_scale = 512 * m_lf / (global_scale * quant_lf));
     borders are left untouched. torch.roll wraps at the edges like
-    jnp.roll; the interior mask hides the wrapped values.
+    jnp.roll; the interior mask hides the wrapped values. Planes are
+    [H, W], or [B, H, W] for a stack of B images (the rolls and the mask
+    act on the last two axes).
     """
     scale_self = 0.052262735
     scale_side = 0.2034514
@@ -88,16 +95,16 @@ def adaptive_lf_smoothing(lf_x, lf_y, lf_b, lf_scale):
 
     def wa(img):
         side = (
-            torch.roll(img, 1, dims=1)
-            + torch.roll(img, -1, dims=1)
-            + torch.roll(img, 1, dims=0)
-            + torch.roll(img, -1, dims=0)
+            torch.roll(img, 1, dims=-1)
+            + torch.roll(img, -1, dims=-1)
+            + torch.roll(img, 1, dims=-2)
+            + torch.roll(img, -1, dims=-2)
         )
         diag = (
-            torch.roll(img, (1, 1), dims=(0, 1))
-            + torch.roll(img, (1, -1), dims=(0, 1))
-            + torch.roll(img, (-1, 1), dims=(0, 1))
-            + torch.roll(img, (-1, -1), dims=(0, 1))
+            torch.roll(img, (1, 1), dims=(-2, -1))
+            + torch.roll(img, (1, -1), dims=(-2, -1))
+            + torch.roll(img, (-1, 1), dims=(-2, -1))
+            + torch.roll(img, (-1, -1), dims=(-2, -1))
         )
         return img * scale_self + side * scale_side + diag * scale_diag
 
@@ -108,7 +115,7 @@ def adaptive_lf_smoothing(lf_x, lf_y, lf_b, lf_scale):
         gap = torch.maximum(gap, torch.abs(w - p) / float(s))
     gap_scale = torch.clamp_min(3.0 - 4.0 * gap, 0.0)
 
-    h, w_ = lf_x.shape
+    h, w_ = lf_x.shape[-2:]
     yy = torch.arange(h, device=lf_x.device)[:, None]
     xx = torch.arange(w_, device=lf_x.device)[None, :]
     interior = (yy > 0) & (yy < h - 1) & (xx > 0) & (xx < w_ - 1)
@@ -195,7 +202,8 @@ def dense_transform_channels(biased, lf_planes, kx_map, kb_map, code_grid,
                              mul_grid, entries, matrices, global_scale,
                              qm_scale, consts=None):
     """All varblock inverse transforms as DENSE per-(type, residue-offset)
-    passes (jxl_oxide_tpu/ops/vardct_pipeline.py::dense_transform_channels).
+    passes (jxl_oxide_tpu/ops/vardct_pipeline.py::dense_transform_channels),
+    over a stack of B images that share one plan's entries.
 
     Varblock types partition the 8x8-block grid, so for each entry
     (dct_select, oy, ox) the plane is retiled at that block offset with
@@ -204,26 +212,31 @@ def dense_transform_channels(biased, lf_planes, kx_map, kb_map, code_grid,
     entry's id contribute (masked input, then an in-place add into the
     output). Separable types and the low-rank 8x8 specials run as dense
     einsums over the plane; DCT8x4 (rank 64) takes the batched-tile
-    layout through inverse_varblock_batch.
+    layout through inverse_varblock_batch. The stack is folded into the
+    channel axis of every transform (the B x C planes are transformed
+    alike), and each image keeps its own anchors, multipliers and CfL
+    maps, so the op sequence is the same for any B.
 
-    biased:   [C, H, W] f32 (dequant bias already applied)
-    lf_planes:[C, BH, BW] f32 dequantized+smoothed LF (DC source)
-    kx_map/kb_map: [H, W] CfL factor maps or Python floats (constant
-    correlation grids)
-    code_grid:[BH, BW] int, entry id at each varblock anchor, -1 elsewhere
-    mul_grid: [BH, BW] f32 hf_mul at anchors
+    biased:   [B, C, H, W] f32 (dequant bias already applied)
+    lf_planes:[B, C, BH, BW] f32 dequantized+smoothed LF (DC source)
+    kx_map/kb_map: [B, H, W] CfL factor maps, Python floats (constant
+    correlation grids) or None (no CfL)
+    code_grid:[B, BH, BW] int, entry id at each varblock anchor, -1 elsewhere
+    mul_grid: [B, BH, BW] f32 hf_mul at anchors
     entries:  tuple of (dct_select, oy, ox)
     matrices: {sel: [C, h, w]} dequant matrix constants
     consts:   _entry_constants(...) for these entries (built if None)
+    Returns [B, C, H, W].
     """
     from ..models.vardct import TransformType as _T
 
-    C, H, W = biased.shape
-    BH, BW = code_grid.shape
+    B, C, H, W = biased.shape
+    BH, BW = code_grid.shape[-2:]
+    BC = B * C
     device = biased.device
     if consts is None:
         consts = _entry_constants(entries, matrices, (BH, BW), device)
-    out = torch.zeros((C, H, W), dtype=torch.float32, device=device)
+    out = torch.zeros((B, C, H, W), dtype=torch.float32, device=device)
     qm = torch.tensor(np.asarray(qm_scale, dtype=np.float32), device=device)
     gs = float(np.float32(65536.0 / global_scale))
 
@@ -237,102 +250,129 @@ def dense_transform_channels(biased, lf_planes, kx_map, kb_map, code_grid,
         nx = (BW - ox) // tw
         ys, xs = oy * 8, ox * 8
         Hr, Wr = ny * h0, nx * w0
-        region4 = biased[:, ys:ys + Hr, xs:xs + Wr].reshape(C, ny, h0, Wr)
-        mul_b = mul_grid[oy:oy + ny * th:th, ox:ox + nx * tw:tw]
-        scale = (gs * qm)[:, None, None] / mul_b[None]
-        scale4 = torch.repeat_interleave(scale, w0, dim=-1)   # [C, ny, Wr]
-        deq = (region4 * k["mat4"][:, None]) * scale4[:, :, None, :]
+        region4 = biased[:, :, ys:ys + Hr, xs:xs + Wr].reshape(
+            B, C, ny, h0, Wr)
+        mul_b = mul_grid[:, oy:oy + ny * th:th, ox:ox + nx * tw:tw]
+        scale = (gs * qm)[None, :, None, None] / mul_b[:, None]
+        scale4 = torch.repeat_interleave(scale, w0, dim=-1)  # [B, C, ny, Wr]
+        deq = (region4 * k["mat4"][None, :, None]) * scale4[:, :, :, None, :]
         if kx_map is not None:
             if isinstance(kx_map, float):
                 kx4 = float(np.float32(kx_map))
                 kb4 = float(np.float32(kb_map))
             else:
-                kx4 = kx_map[ys:ys + Hr, xs:xs + Wr].reshape(ny, h0, Wr)
-                kb4 = kb_map[ys:ys + Hr, xs:xs + Wr].reshape(ny, h0, Wr)
+                kx4 = kx_map[:, ys:ys + Hr, xs:xs + Wr].reshape(
+                    B, ny, h0, Wr)
+                kb4 = kb_map[:, ys:ys + Hr, xs:xs + Wr].reshape(
+                    B, ny, h0, Wr)
             deq = torch.stack([
-                deq[0] + kx4 * deq[1],
-                deq[1],
-                deq[2] + kb4 * deq[1],
-            ])
+                deq[:, 0] + kx4 * deq[:, 1],
+                deq[:, 1],
+                deq[:, 2] + kb4 * deq[:, 1],
+            ], dim=1)
 
         # anchor mask applied to the transform INPUT: every transform is
         # linear, so zeroed tiles produce zeroed pixels
-        anchors = code_grid[oy:oy + ny * th:th, ox:ox + nx * tw:tw] == eid
-        am4 = torch.repeat_interleave(anchors, w0, dim=-1)   # [ny, Wr]
+        anchors = code_grid[:, oy:oy + ny * th:th, ox:ox + nx * tw:tw] == eid
+        am4 = torch.repeat_interleave(anchors, w0, dim=-1)   # [B, ny, Wr]
         if k["separable"]:
             if th * tw == 1:
                 # 1x1 types: the LF sample IS the DC input slot
-                lf_a = lf_planes[:, oy:oy + ny, ox:ox + nx]
-                lf4 = torch.repeat_interleave(lf_a, w0, dim=-1)[:, :, None, :]
+                lf_a = lf_planes[:, :, oy:oy + ny, ox:ox + nx]
+                lf4 = torch.repeat_interleave(lf_a, w0, dim=-1)[
+                    :, :, :, None, :]
             else:
                 # multi-block DCTnxm: embed fwd-DCT of the LF tile into
                 # the low corner (transform_common.rs:11-77), all dense
-                lf5 = lf_planes[:, oy:oy + ny * th, ox:ox + nx * tw]
-                lf_c = _sep_apply_dense(lf5, k["av"], k["ah"], C, ny, th,
-                                        nx, tw)
-                lf_c4 = lf_c.reshape(C, ny, th, nx * tw) / k["sf4"][None, None]
+                lf5 = lf_planes[:, :, oy:oy + ny * th, ox:ox + nx * tw]
+                lf_c = _sep_apply_dense(lf5.reshape(BC, ny * th, nx * tw),
+                                        k["av"], k["ah"], BC, ny, th, nx, tw)
+                lf_c4 = lf_c.reshape(BC, ny, th, nx * tw) / k["sf4"][None,
+                                                                    None]
                 lf4 = torch.nn.functional.pad(
-                    lf_c4.reshape(C, ny, th, nx, tw),
+                    lf_c4.reshape(BC, ny, th, nx, tw),
                     (0, w0 - tw, 0, 0, 0, h0 - th),
-                ).reshape(C, ny, h0, Wr)
-            am = am4[None, :, None, :]
+                ).reshape(B, C, ny, h0, Wr)
+            am = am4[:, None, :, None, :]
             deq = torch.where(
-                am & k["corner"][None, None], lf4,
+                am & k["corner"][None, None, None], lf4,
                 torch.where(am, deq, torch.zeros((), device=device)))
+            deq = deq.reshape(BC, ny, h0, Wr)
             if "lowrank" in k:
                 # non-separable special as a sum of Kronecker terms
                 terms = k["lowrank"]
                 pix = _sep_apply_4d(deq, terms[0][0], terms[0][1],
-                                    C, ny, h0, nx, w0)
+                                    BC, ny, h0, nx, w0)
                 for vq, hq in terms[1:]:
-                    pix = pix + _sep_apply_4d(deq, vq, hq, C, ny, h0, nx, w0)
+                    pix = pix + _sep_apply_4d(deq, vq, hq, BC, ny, h0, nx,
+                                              w0)
             else:
-                pix = _sep_apply_4d(deq, k["bv"], k["bh"], C, ny, h0, nx, w0)
+                pix = _sep_apply_4d(deq, k["bv"], k["bh"], BC, ny, h0, nx,
+                                    w0)
         else:
             # DCT8x4: batched-tile layout (inputs pre-masked, incl. the
             # LF/DC values of non-anchor tiles)
             zero = torch.zeros((), device=device)
-            deq = torch.where(am4[None, :, None, :], deq, zero)
-            tiles = deq.reshape(C, ny, h0, nx, w0).permute(0, 1, 3, 2, 4)
-            lf_t = torch.where(anchors[None],
-                               lf_planes[:, oy:oy + ny, ox:ox + nx], zero)
+            deq = torch.where(am4[:, None, :, None, :], deq, zero)
+            tiles = deq.reshape(BC, ny, h0, nx, w0).permute(0, 1, 3, 2, 4)
+            lf_t = torch.where(anchors[:, None],
+                               lf_planes[:, :, oy:oy + ny, ox:ox + nx], zero)
             pix = inverse_varblock_batch(
-                tiles.reshape(C * ny * nx, h0, w0),
-                lf_t.reshape(C * ny * nx, 1, 1),
+                tiles.reshape(BC * ny * nx, h0, w0),
+                lf_t.reshape(BC * ny * nx, 1, 1),
                 sel,
-            ).reshape(C, ny, nx, h0, w0).permute(0, 1, 3, 2, 4).reshape(
-                C, Hr, Wr)
+            ).reshape(BC, ny, nx, h0, w0).permute(0, 1, 3, 2, 4).reshape(
+                BC, Hr, Wr)
 
-        out[:, ys:ys + Hr, xs:xs + Wr].add_(pix)
+        out[:, :, ys:ys + Hr, xs:xs + Wr].add_(pix.reshape(B, C, Hr, Wr))
     return out
 
 
 def _sigma_map(sigma_blocks, H, W):
-    """Per-pixel [H, W] sigma from the per-8x8-block grid."""
-    s = torch.repeat_interleave(sigma_blocks, 8, dim=0)
-    return torch.repeat_interleave(s, 8, dim=1)[:H, :W].contiguous()
+    """Per-pixel [B, H, W] sigma from the per-8x8-block grids [B, BH, BW]."""
+    s = torch.repeat_interleave(sigma_blocks, 8, dim=-2)
+    return torch.repeat_interleave(s, 8, dim=-1)[..., :H, :W].contiguous()
 
 
 def _filter_tail(out, sigma_blocks, gabor_weights, epf_params, embed, crop):
-    """The end of both fused programs on [3, H, W] planes: gaborish, the
-    EPF passes, then embed (ROI rect placed into a zero canvas at its
-    frame position) and crop."""
-    _, H, W = out.shape
+    """The end of both fused programs on a stack of [B, 3, H, W] planes:
+    gaborish, the EPF passes (one kernel launch per pass for the whole
+    stack), then embed (ROI rect placed into a zero canvas at its frame
+    position) and crop."""
+    B, _, H, W = out.shape
     if gabor_weights is not None:
         out = torch.stack([
-            gabor(out[c], tuple(gabor_weights[c])) for c in range(3)
-        ])
+            gabor(out[:, c], tuple(gabor_weights[c])) for c in range(3)
+        ], dim=1)
     if epf_params is not None:
         out = apply_epf(out, _sigma_map(sigma_blocks, H, W), epf_params)
     if embed is not None:
         fh, fw, oy, ox = embed
-        full = torch.zeros((3, fh, fw), dtype=torch.float32,
+        full = torch.zeros((B, 3, fh, fw), dtype=torch.float32,
                            device=out.device)
-        full[:, oy:oy + out.shape[1], ox:ox + out.shape[2]] = out
+        full[:, :, oy:oy + out.shape[2], ox:ox + out.shape[3]] = out
         out = full
     if crop is not None:
-        out = out[:, : crop[0], : crop[1]]
+        out = out[:, :, : crop[0], : crop[1]]
     return out
+
+
+def _lead(x):
+    """One image's program input as a stack of one (a sparse pair, pair
+    by pair)."""
+    if isinstance(x, (tuple, list)):
+        return tuple(a[None] for a in x)
+    return x[None]
+
+
+def _one_image(stacked):
+    """The one-image form of a stacked program: the same ops on a stack of
+    one image. `.stacked` is the program itself."""
+    def program(*inputs):
+        return stacked(*[_lead(x) for x in inputs])[0]
+
+    program.stacked = stacked
+    return program
 
 
 def build_fused_pipeline(plane_shape, lf_shape, entries,
@@ -352,7 +392,11 @@ def build_fused_pipeline(plane_shape, lf_shape, entries,
     Same constructor arguments as the JAX builder, plus `device` (default
     cuda, see device.resolve_device); the callable takes the
     `fused_program_parts` inputs as tensors on that device
-    (upload_inputs) and returns [3, H, W] float32 planes there.
+    (upload_inputs) and returns [3, H, W] float32 planes there. Its
+    `.stacked` takes the inputs of B images that share this program's key,
+    each stacked on a leading axis (stack_inputs), and returns [B, 3, H,
+    W]: the same op sequence for any B (the one-image form is a stack of
+    one), with one EPF launch per pass for the whole stack.
     """
     from ..device import resolve_device
 
@@ -369,17 +413,18 @@ def build_fused_pipeline(plane_shape, lf_shape, entries,
         if sparse_coeff_n is not None:
             coeff = _sparse_to_dense(coeff, (3, H, W))
         # --- LF: dequant + CfL + smoothing ---
-        lf_planes = lf_quant.to(torch.float32) * lf_scale_arr[:, None, None]
+        lf_planes = lf_quant.to(torch.float32) * lf_scale_arr[:, :, None,
+                                                              None]
         lf_planes = torch.stack([
-            lf_planes[0] + kx0 * lf_planes[1],
-            lf_planes[1],
-            lf_planes[2] + kb0 * lf_planes[1],
-        ])
+            lf_planes[:, 0] + kx0 * lf_planes[:, 1],
+            lf_planes[:, 1],
+            lf_planes[:, 2] + kb0 * lf_planes[:, 1],
+        ], dim=1)
         if not skip_smoothing:
             sm = adaptive_lf_smoothing(
-                lf_planes[0], lf_planes[1], lf_planes[2], lf_scale
+                lf_planes[:, 0], lf_planes[:, 1], lf_planes[:, 2], lf_scale
             )
-            lf_planes = torch.stack(list(sm))
+            lf_planes = torch.stack(list(sm), dim=1)
 
         # --- HF CfL factor maps from per-64x64 grids, expanded on device
         # (all-zero correlation grids collapse to scalar factors) ---
@@ -392,10 +437,10 @@ def build_fused_pipeline(plane_shape, lf_shape, entries,
                       + x_grid.to(torch.float32) / cf)
             kb_map = (float(np.float32(cfl_base[1]))
                       + b_grid.to(torch.float32) / cf)
-            kx_map = kx_map.repeat_interleave(64, 0).repeat_interleave(
-                64, 1)[:H, :W]
-            kb_map = kb_map.repeat_interleave(64, 0).repeat_interleave(
-                64, 1)[:H, :W]
+            kx_map = kx_map.repeat_interleave(64, -2).repeat_interleave(
+                64, -1)[:, :H, :W]
+            kb_map = kb_map.repeat_interleave(64, -2).repeat_interleave(
+                64, -1)[:, :H, :W]
 
         biased = _bias(coeff, qb, qbn)
         out = dense_transform_channels(
@@ -407,13 +452,14 @@ def build_fused_pipeline(plane_shape, lf_shape, entries,
         return _filter_tail(out, sigma_blocks, gabor_weights, epf_params,
                             embed, crop)
 
-    return pipeline
+    return _one_image(pipeline)
 
 
 def _triangle_up2(p, axis: int):
     """JPEG chroma 2x triangle upsample along one axis, clamp-to-edge
     (filter/ycbcr.rs apply_jpeg_upsampling_single): out[2j] leans on the
-    previous sample, out[2j+1] on the next.
+    previous sample, out[2j+1] on the next. `axis` may count from the end
+    (-1, -2), which leading stack axes leave in place.
 
     Written adds-first with one exact *0.25 at the end ((prev + 3p)/4
     with 3p = (p+p)+p), as the JAX package writes it: adds followed by a
@@ -442,7 +488,8 @@ def build_fused_pipeline_1ch(plane_shape, lf_shape, entries, matrices,
 
     entries: ((sel, oy, ox), ...); matrices: {sel: [h, w]} this channel.
     fn(coeff [H, W] int, lf_quant [LH, LW], code_grid, mul_grid)
-    -> [H, W] f32 on `device`.
+    -> [H, W] f32 on `device`; fn.stacked takes and returns the same with
+    a leading stack axis.
     """
     from ..device import resolve_device
 
@@ -455,13 +502,13 @@ def build_fused_pipeline_1ch(plane_shape, lf_shape, entries, matrices,
     def pipeline(coeff, lf_quant, code_grid, mul_grid):
         lf_plane = lf_quant.to(torch.float32) * lf_s
         out = dense_transform_channels(
-            _bias(coeff, qb, qbn)[None], lf_plane[None], None, None,
+            _bias(coeff, qb, qbn)[:, None], lf_plane[:, None], None, None,
             code_grid, mul_grid.to(torch.float32), entries, mats3,
             global_scale, (qm_scale,), consts=consts,
         )
-        return out[0]
+        return out[:, 0]
 
-    return pipeline
+    return _one_image(pipeline)
 
 
 def build_fused_pipeline_subsampled(
@@ -488,14 +535,16 @@ def build_fused_pipeline_subsampled(
 
     fn(c0, l0, code0, mul0, c1, l1, code1, mul1, c2, l2, code2, mul2,
     sigma_blocks) -> [3, crop_h, crop_w] f32 full-resolution planes on
-    `device` (still YCbCr; the BT.601 conversion comes after)."""
+    `device` (still YCbCr; the BT.601 conversion comes after); fn.stacked
+    takes B images' inputs stacked on a leading axis and returns [B, 3,
+    crop_h, crop_w], with the same op sequence for any B."""
     Hr, Wr = full_shape
     chans = [
         build_fused_pipeline_1ch(
             plane_shapes[c], lf_shapes[c], entries3[c], matrices3[c],
             quant_bias[c], quant_bias_numerator, global_scale, qm_scale[c],
             lf_scale[c], device=device,
-        )
+        ).stacked
         for c in range(3)
     ]
 
@@ -506,15 +555,15 @@ def build_fused_pipeline_subsampled(
             if sparse_coeff_n is not None and sparse_coeff_n[c] is not None:
                 coeff = _sparse_to_dense(coeff, plane_shapes[c])
             outc = chans[c](coeff, lf_quant, code_grid, mul_grid)
-            while outc.shape[1] < Wr:
-                outc = _triangle_up2(outc, 1)
-            while outc.shape[0] < Hr:
-                outc = _triangle_up2(outc, 0)
-            planes.append(outc[:Hr, :Wr])
-        return _filter_tail(torch.stack(planes), args[12], gabor_weights,
-                            epf_params, embed, crop)
+            while outc.shape[-1] < Wr:
+                outc = _triangle_up2(outc, -1)
+            while outc.shape[-2] < Hr:
+                outc = _triangle_up2(outc, -2)
+            planes.append(outc[:, :Hr, :Wr])
+        return _filter_tail(torch.stack(planes, dim=1), args[12],
+                            gabor_weights, epf_params, embed, crop)
 
-    return pipeline
+    return _one_image(pipeline)
 
 
 # -- the staged path's stages (render/vardct.py _run_staged) ---------------
@@ -596,6 +645,20 @@ def _flatten(inputs):
         else:
             flat.append(np.ascontiguousarray(x))
     return flat
+
+
+def stack_inputs(per_image):
+    """The program inputs of B images that share a program key (each a
+    `fused_program_parts` input list) as one list of stacked numpy
+    arrays, input by input; a sparse (index, value) pair stacks pair by
+    pair. The key fixes every input's shape and the grouping its dtype."""
+    out = []
+    for xs in zip(*per_image):
+        if isinstance(xs[0], (tuple, list)):
+            out.append(tuple(np.stack(a) for a in zip(*xs)))
+        else:
+            out.append(np.stack(xs))
+    return out
 
 
 def upload_inputs(inputs, device):

@@ -10,6 +10,10 @@ Modular: the original channels of the frame's ModularImage -> floats
 (integer samples, lossless XYB, or float samples on the host) ->
 gaborish -> EPF at the frame's constant sigma.
 
+Extra channels (the port's envelope: one integer alpha) convert with
+their own bit depth and are never filtered (`extra_channel_planes`), on
+both paths.
+
 Behavioral parity: jxl-render/src/render.rs (render_frame), image.rs
 (upsample_jpeg, convert_modular_xyb) and jxl-image lib.rs
 (integer-sample parsing); jxl_oxide_tpu/render/render.py::render_frame.
@@ -23,7 +27,8 @@ import torch
 from ..ops.filters import apply_epf, apply_gabor, sigma_map_from_blocks
 from ..utils.trace import traced
 
-__all__ = ["render_modular_tail", "render_vardct_tail"]
+__all__ = ["extra_channel_planes", "render_modular_tail",
+           "render_vardct_tail"]
 
 
 def _parse_float_samples(arr: np.ndarray, bit_depth) -> np.ndarray:
@@ -56,11 +61,38 @@ def _upload(chans: list, device) -> torch.Tensor:
     return torch.from_numpy(np.stack(chans[:3])).to(device)
 
 
+def integer_samples_to_float(planes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Integer samples -> [0, 1] float32 (jxl-image lib.rs:458-487): an
+    IEEE float32 division by 2^bits - 1, bit for bit the JAX package's
+    numpy division. The divisor is a tensor on the planes' device: a
+    Python scalar divisor makes torch's CUDA division multiply by its
+    reciprocal, which can differ by an ulp."""
+    div = torch.tensor(float(np.float32((1 << bits) - 1)),
+                       dtype=torch.float32, device=planes.device)
+    return planes.to(torch.float32) / div
+
+
+def extra_channel_planes(chans: list, ec_info: list, device) -> list:
+    """[h, w] float32 planes on `device` of a frame's extra channels, from
+    their integer samples (numpy arrays or tensors), each converted with
+    its own bit depth (jxl-render image.rs:507-508). No filter touches
+    them. The envelope (api.py `_check_envelope`) admits integer samples
+    only."""
+    out = []
+    for chan, info in zip(chans, ec_info):
+        t = chan if isinstance(chan, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(chan))
+        out.append(integer_samples_to_float(
+            t.to(device), info.bit_depth.bits_per_sample))
+    return out
+
+
 @traced("Render frame")
-def render_modular_tail(frame, chans: list, device) -> list:
-    """Three [h, w] float32 planes on `device` from the original channels
-    of a Modular frame (numpy arrays after the host tail, int32 tensors on
-    the device after the device tail), filtered as the frame says."""
+def render_modular_tail(frame, chans: list, device) -> tuple[list, list]:
+    """(color, extra) on `device` from the original channels of a Modular
+    frame (numpy arrays after the host tail, int32 tensors on the device
+    after the device tail): three [h, w] float32 colour planes, filtered as
+    the frame says, and one plane per extra channel, unfiltered."""
     header = frame.header
     meta = frame.image_header.metadata
     bit_depth = meta.bit_depth
@@ -79,15 +111,11 @@ def render_modular_tail(frame, chans: list, device) -> list:
             _parse_float_samples(np.asarray(c), bit_depth) for c in chans[:3]
         ])).to(device).unbind(0))
     else:
-        # integer samples -> [0, 1]: an IEEE float32 division by
-        # 2^bits - 1. The divisor is a tensor on the device: a Python
-        # scalar divisor makes torch's CUDA division multiply by its
-        # reciprocal, which can differ by an ulp
-        planes = _upload(chans, device).to(torch.float32)
-        div = torch.tensor(float(np.float32((1 << bit_depth.bits_per_sample)
-                                            - 1)),
-                           dtype=torch.float32, device=planes.device)
-        color = list((planes / div).unbind(0))
+        color = list(integer_samples_to_float(
+            _upload(chans, device), bit_depth.bits_per_sample).unbind(0))
+    extra = extra_channel_planes(
+        chans[frame.lf_global.gmodular.extra_channel_from:], meta.ec_info,
+        color[0].device)
 
     rf = header.restoration_filter
     if rf.gab.enabled:
@@ -97,7 +125,7 @@ def render_modular_tail(frame, chans: list, device) -> list:
                            dtype=torch.float32, device=color[0].device)
         out = apply_epf(color, sigma, rf.epf)
         color = [out[0], out[1], out[2]]
-    return color
+    return color, extra
 
 
 def _upsample2x_triangle(plane: torch.Tensor, axis: int,

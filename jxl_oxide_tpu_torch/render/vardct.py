@@ -727,6 +727,20 @@ class VardctFrameState:
 
     _fused_cache: dict = {}
 
+    @classmethod
+    def program(cls, key, make_fn, device):
+        """The fused program of `key` on `device`, built by make_fn(device)
+        once per key and device in the class-wide cache, which the
+        per-image and the stacked decodes share."""
+        dev_key = (key, str(device))
+        fn = cls._fused_cache.get(dev_key)
+        if fn is None:
+            fn = make_fn(device)
+            if len(cls._fused_cache) > 32:
+                cls._fused_cache.clear()
+            cls._fused_cache[dev_key] = fn
+        return fn
+
     def _fused_host_inputs(self, hf_global: HfGlobal | None, rect=None):
         """Host-assembled inputs of the fused pipeline.
 
@@ -995,13 +1009,7 @@ class VardctFrameState:
         if parts is None:
             return None
         key, make_fn, inputs = parts
-        dev_key = (key, str(device))
-        fn = self._fused_cache.get(dev_key)
-        if fn is None:
-            fn = make_fn(device)
-            if len(self._fused_cache) > 32:
-                self._fused_cache.clear()
-            self._fused_cache[dev_key] = fn
+        fn = self.program(key, make_fn, device)
         with span("Upload"):
             placed = upload_inputs(inputs, device)
         with span("Fused program"):

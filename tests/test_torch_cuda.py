@@ -1,7 +1,8 @@
-"""The port on the card: the hand-written EPF kernel (csrc/epf.cu) and
-squeeze kernel (csrc/modular_squeeze.cu) against their plain torch
-versions, the squeeze pyramid against the host tail, and the committed
-fixtures decoded on CUDA.
+"""The port on the card: the hand-written EPF kernel (csrc/epf.cu), on one
+image and on stacks, and the squeeze kernel (csrc/modular_squeeze.cu)
+against their plain torch versions, the squeeze pyramid against the host
+tail, the committed fixtures decoded on CUDA, and the stacked serving
+path against per-image decodes.
 
 Marked `cuda`: where torch.cuda.is_available() is false these skip (the
 kernels have no CPU mode; their arithmetic is held here by
@@ -235,3 +236,57 @@ def test_modular_fixture_decodes_on_cuda(cuda, name, squeezes):
                                                    else 0)
     assert inv_squeeze_cuda.launches - before[1] == squeezes
     assert tp.max_lsb(u8, ref) <= 1
+
+
+# stacks of N images: the TMA copy (W % 4 == 0) and the cp.async copy
+@pytest.mark.parametrize("n", [1, 2, 5])
+@pytest.mark.parametrize("hw", [(150, 40), (150, 42), (130, 68)])
+@pytest.mark.parametrize("step,mult", [(0, 1.65), (1, 1.0), (2, 2.35)])
+def test_epf_kernel_stack_is_one_launch(cuda, n, hw, step, mult):
+    """One launch on [N, 3, H, W]: bit for bit the N one-image launches,
+    and within 2e-5 of the plain version on the stack."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.filters import epf_step
+
+    ins = [tp.epf_inputs((3, *hw), seed=10 * step + j) for j in range(n)]
+    planes = torch.from_numpy(np.stack([p for p, _ in ins])).to(cuda)
+    sigma = torch.from_numpy(np.stack([s for _, s in ins])).to(cuda)
+    before = epf_step_cuda.launches
+    got = epf_step_cuda(planes, sigma, step, CS, mult, BSM)
+    torch.cuda.synchronize()
+    assert epf_step_cuda.launches == before + 1
+    singles = torch.stack([epf_step_cuda(planes[j], sigma[j], step, CS, mult,
+                                         BSM) for j in range(n)])
+    assert torch.equal(got, singles)
+    want = epf_step(planes, sigma, step, CS, mult, BSM)
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+def test_stacked_serving_equals_per_image_on_cuda(cuda):
+    """decode_batch_stacked on the card: two different flagship-recipe
+    streams (one 4:4:4 stack), the alpha fixture, and two different 4:2:2
+    streams (one subsampled stack), each bit for bit its per-image decode
+    and the fixtures within 1 LSB of their references; one EPF launch per
+    pass of each stacked group."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage, decode_batch_stacked
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+
+    names = ["flagship_1024", "flagship_1024_s1", "flagship_alpha_1024",
+             "ycbcr422_256", "ycbcr422_256_s1"]
+    streams = []
+    for n in names:
+        with open(f"{tp.TESTDATA}/{n}.jxl", "rb") as f:
+            streams.append(f.read())
+    before = epf_step_cuda.launches
+    got = decode_batch_stacked(streams, output="u8")
+    assert epf_step_cuda.launches - before == 3 * 2
+    for name, data, img in zip(names, streams, got):
+        want = JxlImage.from_bytes(data).render_frame(0).to_u8()
+        assert img.shape == want.shape
+        assert np.array_equal(img, want), name
+        if not name.endswith("_s1"):  # streams committed with a reference
+            assert tp.max_lsb(img, tp.fixture(name)[1]) <= 1

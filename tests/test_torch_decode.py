@@ -4,7 +4,9 @@ jxl_oxide_tpu: within 1 LSB on the parity streams and on the committed
 fixtures. Streams outside the port's envelope raise
 JxlNotSupportedError, and with no device= the port wants CUDA. The
 chroma-subsampled and staged paths have their own files
-(test_torch_subsampled.py, test_torch_staged.py)."""
+(test_torch_subsampled.py, test_torch_staged.py), as have alpha,
+orientation and serving (test_torch_alpha.py, test_torch_orientation.py,
+test_torch_serving.py)."""
 
 import numpy as np
 import pytest
@@ -58,20 +60,31 @@ def _lf_frame():
 
 
 def _alpha():
+    """An alpha beside a spot colour: more than the one integer alpha that
+    the envelope takes."""
+    from encoder import encode_jxl_modular
+
     rng = np.random.default_rng(2)
-    return tp.vardct_stream(
-        32, 32, 3, alpha=rng.integers(0, 256, (32, 32)).astype(np.int64))
+    return encode_jxl_modular(
+        [rng.integers(0, 256, (32, 32)) for _ in range(5)], bit_depth=8,
+        extra_alpha=True, spot_colour=(0.0, 1.0, 0.0, 1.0))
 
 
-def _orientation():
-    return tp.vardct_stream(32, 32, 4, orientation=6)
+def _alpha_dim_shift():
+    from encoder import encode_jxl_modular
+
+    rng = np.random.default_rng(4)
+    return encode_jxl_modular(
+        [rng.integers(0, 256, (32, 32)) for _ in range(3)]
+        + [rng.integers(0, 256, (8, 8))], bit_depth=8, extra_alpha=True,
+        alpha_dim_shift=2)
 
 
 @pytest.mark.parametrize("make,item", [
     (_grey_modular, "item 15"),
     (_lf_frame, "item 9"),
     (_alpha, "item 17"),
-    (_orientation, "item 16"),
+    (_alpha_dim_shift, "item 9"),
 ])
 def test_outside_the_envelope_raises(make, item):
     img = JxlImage.from_bytes(make(), device="cpu")

@@ -59,7 +59,8 @@ def test_cold_sets_move_twice_the_l2_between_uses(hw, copies):
 def test_capture_sees_every_pass_of_every_path(make, staged, monkeypatch):
     """capture_decode keeps the inputs of each EPF pass whichever program
     runs it (the staged path's passes run in the render tail), in order,
-    and decodes as an uncaptured decode does."""
+    and decodes as an uncaptured decode does. The fused programs run one
+    image as a stack of one: their passes take [1, 3, H, W]."""
     from jxl_oxide_tpu_torch import JxlImage
     from jxl_oxide_tpu_torch.render import vardct as tvmod
 
@@ -71,6 +72,7 @@ def test_capture_sees_every_pass_of_every_path(make, staged, monkeypatch):
     img = JxlImage.from_bytes(data, device="cpu")
     iters = img._frames[0].header.restoration_filter.epf.iters
     assert [c[2] for c in captured] == [0, 1, 2][3 - iters:]
+    lead = () if staged else (1,)
     for planes, sigma, *_ in captured:
-        assert tuple(planes.shape) == (3, img.height, img.width)
-        assert tuple(sigma.shape) == (img.height, img.width)
+        assert tuple(planes.shape) == (*lead, 3, img.height, img.width)
+        assert tuple(sigma.shape) == (*lead, img.height, img.width)

@@ -93,3 +93,23 @@ def test_wrapper_uses_plain_version_only_on_cpu():
     assert epf_step_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         epf_step_cuda(p.to("meta"), s.to("meta"), 1, CS, 1.0, BSM)
+
+
+@pytest.mark.parametrize("shape", [(3, 150, 40), (3, 5, 2), (3, 17, 33)])
+@pytest.mark.parametrize("step,mult", STEPS)
+@pytest.mark.parametrize("n", [1, 3])
+def test_batched_epf_step_equals_a_loop(shape, step, mult, n):
+    """epf_step on a stack [N, 3, H, W] with sigma [N, H, W] is a loop of
+    one-image passes, bit for bit (the wrapper takes the stack on the CPU
+    too); gabor on [N, H, W] likewise."""
+    ins = [tp.epf_inputs(shape, seed=20 + j) for j in range(n)]
+    planes = torch.from_numpy(np.stack([p for p, _ in ins]))
+    sigma = torch.from_numpy(np.stack([s for _, s in ins]))
+    got = epf_step_cuda(planes, sigma, step, CS, mult, BSM)
+    want = torch.stack([tf.epf_step(planes[j], sigma[j], step, CS, mult, BSM)
+                        for j in range(n)])
+    assert torch.equal(got, want)
+    w = (0.115169525, 0.061248592)
+    assert torch.equal(tf.gabor(planes[:, 0], w),
+                       torch.stack([tf.gabor(planes[j, 0], w)
+                                    for j in range(n)]))

@@ -14,8 +14,9 @@
   lossless frames with no filter, within 1e-5 (tests/test_api.py:590) for
   filtered or XYB planes and 1 LSB in u8/u16; and the committed Modular
   fixtures against their references.
-- The envelope: greyscale and alpha Modular streams raise, naming their
-  ROADMAP items; the gate and the sample lane follow the decode's device.
+- The envelope: greyscale Modular streams and an alpha beside a spot
+  colour raise, naming their ROADMAP items; the gate and the sample lane
+  follow the decode's device.
 """
 
 import types
@@ -311,10 +312,12 @@ def _grey():
 
 
 def _alpha():
+    """Alpha and a spot colour: beyond the one integer alpha that the
+    envelope takes (one alpha alone decodes, test_torch_alpha.py)."""
     rng = np.random.default_rng(22)
     return encode_jxl_modular(
-        [rng.integers(0, 256, (32, 32)) for _ in range(4)], bit_depth=8,
-        extra_alpha=True)
+        [rng.integers(0, 256, (32, 32)) for _ in range(5)], bit_depth=8,
+        extra_alpha=True, spot_colour=(1.0, 0.5, 0.0, 1.0))
 
 
 @pytest.mark.parametrize("make,item", [(_grey, "item 15"),

@@ -1,0 +1,262 @@
+"""The port's serving API (jxl_oxide_tpu_torch/serving.py) on the CPU:
+decode_batch, decode_iter and decode_batch_stacked against the JAX
+package's (tests/test_api.py:1547-1700), and the stacked path against the
+port's own per-image decode.
+
+Tolerances: against JAX, u8 within 1 LSB and f32 within 2e-5 (the
+per-image tolerances of tests/test_torch_decode.py), alpha bit for bit;
+stacked against the port's per-image decode, bit for bit (the same ops on
+a stack of one). The stacked program's dispatched aten op count does not
+grow with the stack (a TorchDispatchMode counter): no stage loops over
+the images.
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+import torch_parity as tp
+from encoder import encode_jxl_modular
+from jxl_oxide_tpu_torch import (
+    JxlImage,
+    decode_batch,
+    decode_batch_stacked,
+    decode_iter,
+)
+from jxl_oxide_tpu_torch import serving
+from jxl_oxide_tpu_torch.ops.vardct_pipeline import stack_inputs, upload_inputs
+
+
+def _alpha(h, w, seed):
+    return np.random.default_rng(seed).integers(0, 256, (h, w)).astype(
+        np.int64)
+
+
+def _mixed_streams():
+    """Four same-geometry 4:4:4 streams, two with alpha, two 4:2:0
+    streams, a Modular stream (per-image path) and an orientation-6
+    stream (per-image path)."""
+    rng = np.random.default_rng(7)
+    streams = [tp.vardct_stream(64, 64, i, epf_iters=1,
+                                alpha=_alpha(64, 64, i) if i % 2 else None)
+               for i in range(4)]
+    streams += [tp.ycbcr_stream(64, 64, tp.CHROMA["420"], seed=s,
+                                gabor=True, epf_iters=2) for s in (1, 2)]
+    streams.append(encode_jxl_modular(
+        [rng.integers(0, 255, (48, 48)) for _ in range(3)]))
+    streams.append(tp.vardct_stream(40, 72, 9, orientation=6))
+    return streams
+
+
+@pytest.fixture(scope="module")
+def streams():
+    return _mixed_streams()
+
+
+def _jax_serving():
+    from jxl_oxide_tpu import serving as js
+
+    return js
+
+
+def _close(got, ref, output):
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        b = np.asarray(b)
+        assert a.shape == b.shape
+        if a.shape[-1] == 4:
+            np.testing.assert_array_equal(a[..., 3], b[..., 3])
+        if output == "u8":
+            assert tp.max_lsb(a, b) <= 1
+        else:
+            np.testing.assert_allclose(a, b, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("output", ["u8", "f32"])
+def test_decode_batch_matches_jax(streams, output):
+    got = decode_batch(streams, output=output, num_workers=2, device="cpu")
+    _close(got, _jax_serving().decode_batch(streams, output=output,
+                                            num_workers=2), output)
+
+
+def test_decode_iter_matches_jax(streams):
+    got = list(decode_iter(iter(streams), output="u8", num_workers=2,
+                           window=1, device="cpu"))
+    ref = list(_jax_serving().decode_iter(iter(streams), output="u8",
+                                          num_workers=2, window=1))
+    _close(got, ref, "u8")
+
+
+@pytest.mark.parametrize("output", ["u8", "f32"])
+def test_decode_batch_stacked_matches_jax(streams, output):
+    got = decode_batch_stacked(streams, output=output, num_workers=2,
+                               device="cpu")
+    _close(got, _jax_serving().decode_batch_stacked(
+        streams, output=output, num_workers=2), output)
+
+
+@pytest.mark.parametrize("output", ["u8", "f32", "device"])
+def test_stacked_equals_per_image(streams, output):
+    """Bit for bit the port's per-image decode (decode_batch), in input
+    order, shapes included; "device" gives tensors on the decode
+    device."""
+    got = decode_batch_stacked(streams, output=output, num_workers=2,
+                               device="cpu")
+    ref = decode_batch(streams, output=output, num_workers=2, device="cpu")
+    for a, b in zip(got, ref):
+        if output == "device":
+            assert isinstance(a, torch.Tensor) and a.device.type == "cpu"
+            assert torch.equal(a, b)
+        else:
+            assert a.shape == b.shape and a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+def test_render_output_and_empty_input(streams):
+    got = decode_batch_stacked(streams[:2], output="render", device="cpu")
+    assert [r.to_u8().shape for r in got] == [(64, 64, 3), (64, 64, 4)]
+    assert decode_batch([], device="cpu") == []
+    with pytest.raises(ValueError):
+        decode_batch(streams, output="png", device="cpu")
+
+
+def test_stacked_fast_envelope_engages():
+    """_host_stage_fast accepts an in-envelope stream (an output-equality
+    test cannot tell the stacked path from the per-image one), with and
+    without alpha; out-of-envelope streams return None or raise."""
+    for alpha in (None, _alpha(128, 128, 3)):
+        data = tp.vardct_stream(128, 128, 7, epf_iters=1, alpha=alpha)
+        out = serving._host_stage_fast(JxlImage.from_bytes(data,
+                                                           device="cpu"), 0)
+        assert out is not None
+        state, hf_global, _, got_alpha = out
+        assert (got_alpha is None) == (alpha is None)
+        assert state.fused_program_parts(hf_global) is not None
+    orient = tp.vardct_stream(40, 72, 9, orientation=6)
+    assert serving._host_stage_fast(
+        JxlImage.from_bytes(orient, device="cpu"), 0) is None
+    modular = encode_jxl_modular([np.zeros((8, 8), np.int64)] * 3)
+    assert serving._host_stage_fast(
+        JxlImage.from_bytes(modular, device="cpu"), 0) is None
+
+
+def _groups(monkeypatch, streams, **kw):
+    """Run decode_batch_stacked; returns the stacks it decoded, each as
+    the input indices of its images, and the per-image indices."""
+    stacks, per_image = [], []
+    decode_stack = serving._decode_stack
+    per_image_decode = serving.decode_batch
+
+    def recording(chunk, key, output):
+        stacks.append([streams.index(id_map[id(c[0])]) for c in chunk])
+        return decode_stack(chunk, key, output)
+
+    id_map = {}
+    from_bytes = JxlImage.from_bytes
+
+    def remembering(data, **kwargs):
+        img = from_bytes(data, **kwargs)
+        id_map[id(img)] = data
+        return img
+
+    def slow(ss, **kwargs):
+        per_image.extend(streams.index(s) for s in ss)
+        return per_image_decode(ss, **kwargs)
+
+    monkeypatch.setattr(serving, "_decode_stack", recording)
+    monkeypatch.setattr(serving, "decode_batch", slow)
+    monkeypatch.setattr(JxlImage, "from_bytes", staticmethod(remembering))
+    got = decode_batch_stacked(streams, num_workers=2, device="cpu", **kw)
+    ref = per_image_decode(streams, num_workers=2, device="cpu")
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    return sorted(stacks), sorted(per_image)
+
+
+def test_groups_split_alpha_subsampling_and_envelope(monkeypatch, streams):
+    """Alpha and non-alpha streams of one program key form separate
+    stacks, the 4:2:0 pair a third; Modular and orientation 6 go per
+    image."""
+    stacks, per_image = _groups(monkeypatch, streams)
+    assert stacks == [[0, 2], [1, 3], [4, 5]]
+    assert per_image == [6, 7]
+
+
+def test_max_stack_chunks(monkeypatch):
+    streams = [tp.vardct_stream(64, 64, i, epf_iters=1) for i in range(5)]
+    stacks, per_image = _groups(monkeypatch, streams, max_stack=2)
+    assert stacks == [[0, 1], [2, 3], [4]] and per_image == []
+
+
+def test_mixed_colour_metadata_do_not_share_a_stack(monkeypatch):
+    """XYB and plain sRGB streams of one program key take separate colour
+    tails (tests/test_api.py test_decode_batch_stacked_mixed_color_metadata)."""
+    streams = [tp.vardct_stream(64, 64, 20 + i, xyb=bool(i % 2))
+               for i in range(4)]
+    stacks, _ = _groups(monkeypatch, streams)
+    assert stacks == [[0, 2], [1, 3]]
+    _close(decode_batch_stacked(streams, num_workers=2, device="cpu"),
+           _jax_serving().decode_batch_stacked(streams, num_workers=2), "u8")
+
+
+def _sparse_stream(big: int) -> bytes:
+    """A 64x264 all-DCT8 stream (two groups) with a sparse lattice of
+    small coefficients and one coefficient of magnitude `big`."""
+    from encoder_vardct import encode_jxl_vardct_tiled
+
+    h, w = 64, 264
+    bh, bw = h // 8, w // 8
+    coeff = np.zeros((3, h, w), np.int64)
+    coeff[:, 1::8, 2::8] = 5
+    coeff[0, 1, 2] = big
+    lf = np.random.default_rng(1).integers(-20, 21, (3, bh, bw))
+    return encode_jxl_vardct_tiled(h, w, np.zeros((bh, bw), np.int64),
+                                   np.ones((bh, bw), np.int64), coeff, lf)
+
+
+def test_mixed_input_dtypes_do_not_share_a_stack(monkeypatch):
+    """Two streams of one program key whose sparse values upload as i8
+    and as i16 (a coefficient of 200): np.stack would promote the pair,
+    so they form separate stacks."""
+    streams = [_sparse_stream(7), _sparse_stream(200), _sparse_stream(9)]
+    parts = [tp.torch_parts(s) for s in streams]
+    assert parts[0][0] == parts[1][0] == parts[2][0]
+    dtypes = [serving._dtype_key(p[2]) for p in parts]
+    assert dtypes[0] == dtypes[2] != dtypes[1]
+    stacks, _ = _groups(monkeypatch, streams)
+    assert stacks == [[0, 2], [1]]
+
+
+def test_stacked_program_op_count_does_not_grow():
+    """The stacked 4:4:4 program (mixed types, per-tile CfL, LF smoothing,
+    gaborish, EPF 0-2) and the stacked subsampled program dispatch as many
+    aten ops for 4 images as for 1."""
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cases = {
+        "444": tp.STREAMS["tiled_cfl_smooth_epf3"](),
+        "420": tp.ycbcr_stream(64, 64, tp.CHROMA["420"], seed=3, gabor=True,
+                               epf_iters=2),
+    }
+    for name, data in cases.items():
+        state, hf_global = tp.torch_host(data)
+        parts = (state.fused_subsampled_program_parts(hf_global)
+                 if state.subsampled else state.fused_program_parts(hf_global))
+        key, make_fn, inputs = parts
+        fn = make_fn("cpu")
+        counts, outs = {}, {}
+        for n in (1, 4):
+            placed = upload_inputs(stack_inputs([inputs] * n), "cpu")
+            Count.n = 0
+            with Count():
+                outs[n] = fn.stacked(*placed)
+            counts[n] = Count.n
+        assert counts[4] == counts[1] > 100, (name, counts)
+        for j in range(4):
+            assert torch.equal(outs[4][j], outs[1][0])

@@ -133,15 +133,16 @@ def test_subsampled_program_matches_jax(chroma, filters):
 
 
 @pytest.mark.parametrize("chroma,calls", [
-    ("420", [((32, 32), 1), ((32, 64), 0)]),
-    ("422", [((64, 32), 1)]),
-    ("440", [((32, 64), 0)]),
+    ("420", [((1, 32, 32), -1), ((1, 32, 64), -2)]),
+    ("422", [((1, 64, 32), -1)]),
+    ("440", [((1, 32, 64), -2)]),
 ])
 def test_subsampled_program_upsamples_horizontal_first(chroma, calls,
                                                        monkeypatch):
-    """Each chroma channel is upsampled horizontally, then vertically, as
-    the JAX program does: the two orders round differently (by an ulp,
-    under the programs' tolerance), so the order is checked by itself."""
+    """Each chroma channel is upsampled horizontally (axis -1), then
+    vertically (axis -2), as the JAX program does: the two orders round
+    differently (by an ulp, under the programs' tolerance), so the order
+    is checked by itself. The program runs one image as a stack of one."""
     seen = []
     up2 = tvp._triangle_up2
 

@@ -4,13 +4,18 @@
     python3 tools/epf_variants.py DIR [DIR ...]
 
 Each DIR holds an epf.cu (and the headers it includes) with the C entry
-jxl_epf_step of jxl_oxide_tpu_torch/csrc/epf.cu; the committed kernel is
+jxl_epf_step_batched of jxl_oxide_tpu_torch/csrc/epf.cu, or the one-image
+jxl_epf_step of an earlier version (ops/cuda/epf.py `bind` takes either,
+and times one image through both alike); the committed kernel is
 DIR = jxl_oxide_tpu_torch/csrc, an earlier one is that folder of an
 earlier commit unpacked with `git archive`. Each is built with the port's
 nvcc flags (ptxas registers and spills printed), held against the plain
 torch epf_step, and timed on the card's clock with the helpers of
 jxl_oxide_tpu_torch/ops/cuda/epf_measure.py (launches replayed from a CUDA
-graph), warm and cold, in turns: the versions in order, then in reverse.
+graph), warm and cold, in turns: the versions in order, then in reverse;
+each later version's output is also held bit for bit against the first
+one's (the count of differing values, 0 where a change keeps the
+arithmetic).
 The inputs: seeded planes of each shape in SHAPES (environment,
 "3x1024x1024,3x2048x2048" by default), then the EPF passes of the
 committed flagship fixture's decode on the card (the main path). Prints
@@ -104,13 +109,20 @@ def main() -> int:
             times[n][0].append(em.device_ms(fns[n], warm, *args))
             times[n][1].append(em.device_ms(fns[n], cold, *args))
         parts = []
+        first = None
         for n in names:
             out = torch.empty_like(planes)
             launch(fns[n], planes, sigma, out, *args)
             torch.cuda.synchronize()
             err = float((out - want).abs().max())
             w, c = (statistics.fmean(v) for v in times[n])
-            parts.append(f"{n}: max|diff| {err:.2g}, warm {w:.4f} ms, "
+            same = ""
+            if first is None:
+                first = out
+            else:
+                same = (f", {int((out != first).sum())} values differ "
+                        f"from {names[0]}")
+            parts.append(f"{n}: max|diff| {err:.2g}{same}, warm {w:.4f} ms, "
                          f"cold {c:.4f} ms ({bound / c:.3f} of bound)")
         print(f"{label}, bound {bound:.4f} ms ({by}): " + " | ".join(parts),
               flush=True)

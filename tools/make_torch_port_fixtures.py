@@ -6,6 +6,9 @@ jxl_oxide_tpu). For each stream it writes, into jxl_oxide_tpu_torch/
 testdata/:
   <name>.jxl   the codestream
   <name>.npz   {"u8": jxl_oxide_tpu's render_frame(0).to_u8()}, compressed
+               (not for the STREAM_ONLY names: the serving phase of
+               chip_smoke.py holds those against the port's own per-image
+               decode)
 
 The port's chip smoke test and its CPU tests decode the .jxl files with
 jxl_oxide_tpu_torch and compare with the .npz references; a machine
@@ -140,6 +143,47 @@ def smooth_u8(h, w, seed):
     return [img[:, :, c] for c in range(3)]
 
 
+def smooth_alpha(h, w, seed):
+    """A seeded smooth 8-bit alpha: the first plane of smooth_u8."""
+    return smooth_u8(h, w, seed)[0]
+
+
+def flagship_alpha(seed, alpha_seed):
+    """The flagship recipe (encode_jxl_vardct of smooth_rgb(1024, 1024,
+    seed), gaborish, 2 EPF passes) with a 1024^2 alpha channel.
+    encode_jxl_vardct takes alpha only up to 256^2, so the multi-group
+    tiled encoder writes the stream, from the quantized coefficients that
+    the JAX host stage decodes out of the flagship recipe's stream: the
+    colour decodes as the recipe's does (all DCT8, global scale 512)."""
+    from encoder_vardct import encode_jxl_vardct, encode_jxl_vardct_tiled
+
+    from jxl_oxide_tpu import JxlImage
+    from jxl_oxide_tpu.models.vardct import TransformType as T
+    from jxl_oxide_tpu.serving import _host_stage_fast
+
+    h = w = 1024
+    plain = encode_jxl_vardct(smooth_rgb(h, w, seed=seed), gabor=True,
+                              epf_iters=2)
+    state, _, _, _ = _host_stage_fast(JxlImage.from_bytes(plain), 0)
+    bh, bw = h // 8, w // 8
+    sel = np.full((bh, bw), int(T.DCT8), dtype=np.int64)
+    mul = np.ones((bh, bw), dtype=np.int64)
+    coeff = np.stack([np.asarray(p, np.int64) for p in state.coeff_planes])
+    lf_q = np.stack([np.asarray(p, np.int64) for p in state.lf_quant_planes])
+    return encode_jxl_vardct_tiled(h, w, sel, mul, coeff, lf_q,
+                                   global_scale=512, gabor=True, epf_iters=2,
+                                   alpha=smooth_alpha(h, w, alpha_seed))
+
+
+# streams committed without a reference (.npz): the other members of the
+# serving phase's alpha group (each 1024^2 alpha costs about 1 MB: the
+# in-repo encoder spends 8 bits a sample), and the second members of the
+# flagship and 4:2:2 stacks of the cuda serving test
+STREAM_ONLY = ("flagship_alpha_1024_s1", "flagship_alpha_1024_s2",
+               "flagship_alpha_1024_s3", "flagship_1024_s1",
+               "ycbcr422_256_s1")
+
+
 def fixtures() -> dict:
     """name -> a function that makes the stream."""
     from encoder import encode_jxl_modular
@@ -159,6 +203,12 @@ def fixtures() -> dict:
                                               gabor=True, epf_iters=2),
         "ycbcr422_256": lambda: ycbcr_stream(256, 256, (0, 2, 0), 8, 0.2,
                                              gabor=True, epf_iters=2),
+        # the flagship and 4:2:2 recipes at other seeds: stacked with the
+        # fixtures above, two different images in one program
+        "flagship_1024_s1": lambda: encode_jxl_vardct(
+            smooth_rgb(1024, 1024, seed=27), gabor=True, epf_iters=2),
+        "ycbcr422_256_s1": lambda: ycbcr_stream(256, 256, (0, 2, 0), 28, 0.2,
+                                                gabor=True, epf_iters=2),
         "staged_1030": staged_1030,
         # lossless Modular at the size where the device tail engages (a
         # transformed plane of 2^20 samples): channel 0 squeezed
@@ -170,6 +220,23 @@ def fixtures() -> dict:
         # lossless XYB Modular under the gate (the host tail), no filters
         "modular_xyb_512": lambda: encode_jxl_modular(
             smooth_u8(512, 512, 11), bit_depth=8, xyb=True, squeeze=True),
+        # the flagship recipe with an 8-bit alpha: fused 4:4:4 + alpha
+        # (the alpha's sub-streams inside the HF sections)
+        "flagship_alpha_1024": lambda: flagship_alpha(9, 20),
+        # three more 1024^2 alpha streams, other seeds: one stacked group
+        # of four with flagship_alpha_1024 in chip_smoke.py's serving phase
+        "flagship_alpha_1024_s1": lambda: flagship_alpha(21, 22),
+        "flagship_alpha_1024_s2": lambda: flagship_alpha(23, 24),
+        "flagship_alpha_1024_s3": lambda: flagship_alpha(25, 26),
+        # lossless Modular with an 8-bit alpha (the host tail), no filters
+        "modular_alpha_512": lambda: encode_jxl_modular(
+            smooth_u8(512, 512, 12) + [smooth_alpha(512, 512, 13)],
+            bit_depth=8, extra_alpha=True),
+        # EXIF orientation 6 on a non-square frame (coded 512 wide, 384
+        # high; displayed 384 x 512), gaborish + 2 EPF passes
+        "orient6_512x384": lambda: encode_jxl_vardct(
+            smooth_rgb(384, 512, 14), gabor=True, epf_iters=2,
+            orientation=6),
     }
 
 
@@ -186,9 +253,12 @@ def main(names) -> None:
     makers = fixtures()
     for name in names or makers:
         data = makers[name]()
-        u8 = reference_u8(data)
         with open(os.path.join(OUT_DIR, f"{name}.jxl"), "wb") as f:
             f.write(data)
+        if name in STREAM_ONLY:
+            print(f"{name}: {len(data)} B stream")
+            continue
+        u8 = reference_u8(data)
         np.savez_compressed(os.path.join(OUT_DIR, f"{name}.npz"), u8=u8)
         print(f"{name}: {len(data)} B stream, u8 {u8.shape}")
 
