@@ -40,8 +40,9 @@ Phases, each fatal (non-zero exit, no "ok" line):
      W = 1030), and lossless Modular with the device tail (modular_1024:
      one squeeze launch, 2 EPF passes) and with the host tail
      (modular_xyb_512, XYB; modular_alpha_512, alpha), each decode's
-     squeeze launches counted too. Host-stage ms, device-stage ms and
-     end-to-end MP/s, warm, median of 5, for each. For one fixture of each
+     squeeze launches counted too. End-to-end MP/s, warm, median of 5,
+     for each, and the same decode split by its spans (host entropy
+     stage, frame device stage, composite, the rest). For one fixture of each
      path (TIMED) the EPF and squeeze inputs are captured in the counted
      run, the kernels are held against the plain versions on them and
      timed on them as in phase 3 (a squeeze beside its byte bound, with
@@ -61,7 +62,19 @@ Phases, each fatal (non-zero exit, no "ok" line):
      time and torch.profiler device-op count against one image's (fatal
      above 1.1x, the kernels whose counts differ listed); the stacked EPF
      passes timed on the card's clock, warm and cold, against their
-     bound.
+     bound;
+  6. multi-frame streams (`phase_animation`): K1 on a [1, 3, 45, 77]
+     plane; for each of ANIMATIONS, the last keyframe rendered cold
+     through render_frame (its dependency cone: frames rendered counted,
+     each on a thread that must see CUDA as the decode device; K1
+     launches equal to 2 per filtered frame rendered), then every earlier
+     keyframe, each a cache hit with no render and no launch; every
+     keyframe against its expected u8 (animation_4f_blend and
+     patch_alpha_256 exactly, the filtered ones within 1 LSB, alpha
+     exactly); warm medians of 5 per keyframe and per cone; one traced
+     cone by span (host entropy stage, frame device stage, composite,
+     summed over threads) and kernel, with the device idle share; the
+     counted runs' EPF passes held and timed as in phase 3.
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
 The squeeze kernel's timing helpers are here (`squeeze_device_ms`).
@@ -99,6 +112,14 @@ SERVING = (("flagship_1024",) * 8
            + ("flagship_alpha_1024", "flagship_alpha_1024_s1",
               "flagship_alpha_1024_s2", "flagship_alpha_1024_s3")
            + ("ycbcr420_1024",) * 2 + ("modular_xyb_512",))
+# the multi-frame fixtures (phase_animation): (name, EPF passes per frame,
+# exact): bench.py's animation_4f_blend (four Replace keyframes, held
+# against its seeded input frames), a Blend chain with an alpha and EPF 2
+# on every frame, a BlendAbove patch from a reference-only frame, and a
+# 77x45 cropped frame with EPF 2 (planes smaller than one tile, W % 4 != 0)
+ANIMATIONS = (("animation_4f_blend", 0, True),
+              ("anim_blend_epf_512", 2, False),
+              ("patch_alpha_256", 0, True), ("crop_epf_77x45", 2, False))
 # stacks of the batched EPF checks: (N, 3, H, W), TMA and cp.async copies
 STACK_SHAPES = ((1, 3, 150, 40), (2, 3, 150, 40), (5, 3, 150, 42),
                 (2, 3, 64, 64), (8, 3, 1024, 1024))
@@ -146,6 +167,19 @@ KERNEL_SHAPES = (
     ((3, 2, 5), False),        # H < 3, W % 4 != 0
     ((3, 1, 8), False),        # H < 3 on the TMA path
 )
+
+
+def animation_4f_frames() -> list:
+    """The expected keyframes of animation_4f_blend, [512, 512, 3] u8
+    each: bench.py's recipe (bench.py:207-218, seed 7), whose frames are
+    full-canvas Replace keyframes, so each decodes to its input frame."""
+    rng = np.random.default_rng(7)
+    frames = [[rng.integers(0, 200, (512, 512), dtype=np.int64)
+               for _ in range(3)]]
+    for _ in range(3):
+        frames.append([np.clip(c + rng.integers(-8, 9, c.shape), 0, 255)
+                       for c in frames[-1]])
+    return [np.stack([c.astype(np.uint8) for c in f], -1) for f in frames]
 
 
 def log(msg: str) -> None:
@@ -223,6 +257,33 @@ def pass_line(row: dict) -> str:
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), cold share "
             f"of bound {row['cold_share']:.3f}, wrapper host "
             f"{row['host_us']:.1f} us/call, plain {row['plain_ms']:.4f} ms")
+
+
+def pass_rows(label: str, captured) -> dict:
+    """K1 on the EPF passes captured from one counted run: each held
+    against the plain version and timed (time_pass); the mean per pass."""
+    rows, errs = [], []
+    for planes, sigma, step, cs, sm, bsm in captured:
+        errs.append(check_kernel(planes, sigma, step, cs, sm, bsm))
+        rows.append(time_pass(planes, sigma, step, cs, sm, bsm))
+        log(f"{label} EPF step {step} {tuple(planes.shape)} "
+            f"{copy_path(planes)}: max|diff| {errs[-1]:.3g}, "
+            f"{pass_line(rows[-1])}")
+
+    def mean(k):
+        return statistics.fmean(r[k] for r in rows)
+
+    bys = [r["bound_by"] for r in rows]
+    return {
+        "max_abs_err": max(errs),
+        "ms": mean("warm"),
+        "cold_ms": mean("cold"),
+        "host_us": mean("host_us"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": max(set(bys), key=bys.count),
+        "cold_share_of_bound": mean("bound_ms") / mean("cold"),
+    }
 
 
 def check_ptxas(name: str, label) -> None:
@@ -633,18 +694,11 @@ def profile_decode(name: str, data: bytes, top: int = 8) -> None:
                 .to_u8(), top)
 
 
-def profile_run(name: str, run, top: int = 8,
-                sum_spans: bool = False) -> None:
-    """Where the time of one warm call of run() goes: the port's own spans
-    (utils/trace.py, host clock; with sum_spans, summed by name over the
-    call's threads), kernel time by name from one torch.profiler trace,
-    and the share of the call's wall time in which the card ran no kernel
-    or copy."""
+@contextlib.contextmanager
+def collecting_spans():
+    """The messages ("name: t ms") of the port's spans (utils/trace.py:
+    DEBUG records on the host clock) logged inside, on any thread."""
     import logging
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from jxl_oxide_tpu_torch.utils.trace import logger as trace_logger
 
@@ -659,25 +713,45 @@ def profile_run(name: str, run, top: int = 8,
     trace_logger.addHandler(keep)
     trace_logger.setLevel(logging.DEBUG)
     try:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        yield spans
     finally:
         trace_logger.removeHandler(keep)
         trace_logger.setLevel(level)
+
+
+def span_totals(spans) -> dict:
+    """{span name: [summed ms, count]} of collecting_spans' messages."""
+    summed: dict[str, list] = {}
+    for line in spans:
+        span_name, ms = line.rsplit(": ", 1)
+        row = summed.setdefault(span_name, [0.0, 0])
+        row[0] += float(ms.split()[0])
+        row[1] += 1
+    return summed
+
+
+def profile_run(name: str, run, top: int = 8,
+                sum_spans: bool = False) -> None:
+    """Where the time of one warm call of run() goes: the port's own spans
+    (utils/trace.py, host clock; with sum_spans, summed by name over the
+    call's threads), kernel time by name from one torch.profiler trace,
+    and the share of the call's wall time in which the card ran no kernel
+    or copy."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with collecting_spans() as spans, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     if sum_spans:
-        summed: dict[str, list] = {}
-        for line in spans:
-            span_name, ms = line.rsplit(": ", 1)
-            row = summed.setdefault(span_name, [0.0, 0])
-            row[0] += float(ms.split()[0])
-            row[1] += 1
         spans = [f"{k}: {v[0]:.2f} ms in {v[1]} spans (summed over threads)"
-                 for k, v in sorted(summed.items(), key=lambda kv: -kv[1][0])]
+                 for k, v in sorted(span_totals(spans).items(),
+                                    key=lambda kv: -kv[1][0])]
     for line in spans:
         log(f"  {name} span {line}")
     by_name: dict[str, list] = {}
@@ -753,6 +827,11 @@ def squeeze_row(name: str, captured) -> dict:
     return out
 
 
+# the top-level spans of one frame's render_frame (render/render.py,
+# render/context.py)
+SPLIT_SPANS = ("Host entropy stage", "Frame device stage", "Composite")
+
+
 def phase_decode() -> tuple[dict, dict]:
     """Every fixture through the entry point; returns the EPF kernel's
     report (the main path's numbers with each timed path's beside them)
@@ -791,58 +870,39 @@ def phase_decode() -> tuple[dict, dict]:
             raise AssertionError(f"{name}: {squeeze_launches} squeeze "
                                  f"launches, {SQUEEZES.get(name, 0)} wanted")
 
-        # warm timings, median of 5
-        host_ms, dev_ms, e2e_s = [], [], []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            img = JxlImage.from_bytes(data)
-            host = img._host_stage(0)
-            t1 = time.perf_counter()
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            planes = img._device_stage(host)
-            ev1.record()
+        # warm timings, median of 5: the decode end to end, then the same
+        # decode split by the port's spans (host clock; the readback in
+        # to_u8 waits for the card, so device work queued by the device
+        # stage can land in "rest")
+        def decode():
             torch.cuda.synchronize()
-            host_ms.append((t1 - t0) * 1e3)
-            dev_ms.append(ev0.elapsed_time(ev1))
             t0 = time.perf_counter()
             JxlImage.from_bytes(data).render_frame(0).to_u8()
-            e2e_s.append(time.perf_counter() - t0)
-            del planes
+            return (time.perf_counter() - t0) * 1e3
+
+        e2e_ms = [decode() for _ in range(5)]
+        split = {k: [] for k in SPLIT_SPANS + ("rest", "wall")}
+        for _ in range(5):
+            with collecting_spans() as spans:
+                wall = decode()
+            totals = span_totals(spans)
+            parts = [totals.get(k, [0.0])[0] for k in SPLIT_SPANS]
+            for k, v in zip(SPLIT_SPANS, parts):
+                split[k].append(v)
+            split["rest"].append(wall - sum(parts))
+            split["wall"].append(wall)
+        med = {k: statistics.median(v) for k, v in split.items()}
         mp = u8.shape[0] * u8.shape[1] / 1e6
-        log(f"{name}: host stage {statistics.median(host_ms):.2f} ms, "
-            f"device stage {statistics.median(dev_ms):.3f} ms, end to end "
-            f"{mp / statistics.median(e2e_s):.2f} MP/s "
-            f"({statistics.median(e2e_s) * 1e3:.2f} ms), warm median of 5")
+        e2e = statistics.median(e2e_ms)
+        log(f"{name}: end to end {mp / e2e * 1e3:.2f} MP/s ({e2e:.2f} ms), "
+            "warm median of 5; the same decode by span, median of 5: "
+            + ", ".join(f"{k} {med[k]:.2f}" for k in SPLIT_SPANS)
+            + f", rest (postprocess, readback) {med['rest']:.2f}, of "
+            f"{med['wall']:.2f} ms")
 
         if name in TIMED:
             profile_decode(name, data)
-            rows, errs = [], []
-            for planes, sigma, step, cs, sm, bsm in captured:
-                errs.append(check_kernel(planes, sigma, step, cs, sm, bsm))
-                path = copy_path(planes)
-                row = time_pass(planes, sigma, step, cs, sm, bsm)
-                rows.append(row)
-                log(f"{name} EPF step {step} {tuple(planes.shape)} "
-                    f"{path}: max|diff| {errs[-1]:.3g}, {pass_line(row)}")
-            bys = [r["bound_by"] for r in rows]
-
-            def mean(key):
-                return statistics.fmean(r[key] for r in rows)
-
-            # per pass, mean over this decode's passes
-            paths[name] = {
-                "launches": launches,
-                "max_abs_err": max(errs),
-                "ms": mean("warm"),
-                "cold_ms": mean("cold"),
-                "host_us": mean("host_us"),
-                "plain_ms": mean("plain_ms"),
-                "bound_ms": mean("bound_ms"),
-                "bound_by": max(set(bys), key=bys.count),
-                "cold_share_of_bound": mean("bound_ms") / mean("cold"),
-            }
+            paths[name] = {"launches": launches, **pass_rows(name, captured)}
             if squeezes:
                 squeeze_paths[name] = {"launches": squeeze_launches,
                                        **squeeze_row(name, squeezes)}
@@ -888,7 +948,7 @@ def device_ops(run) -> collections.Counter:
 
 
 def phase_serving(device) -> dict:
-    """The serving path (this slice's main path): one decode_batch_stacked
+    """The serving path: one decode_batch_stacked
     call over SERVING on `device`, held against the per-image decodes and
     the references, its K1 launches counted; then timed. Returns K1's row
     of the stacked path."""
@@ -903,7 +963,9 @@ def phase_serving(device) -> dict:
         stack_inputs,
         upload_inputs,
     )
+    from jxl_oxide_tpu_torch.render.render import host_stage
     from jxl_oxide_tpu_torch.render.vardct import VardctFrameState
+    from jxl_oxide_tpu_torch.utils.options import use_decode_device
 
     fixtures = {n: read_fixture(n) for n in dict.fromkeys(SERVING)}
     streams = [fixtures[n][0] for n in SERVING]
@@ -999,7 +1061,9 @@ def phase_serving(device) -> dict:
     data = fixtures["flagship_1024"][0]
     parts = []
     for _ in range(8):
-        host = JxlImage.from_bytes(data, device=device)._host_stage(0)
+        with use_decode_device(device):
+            host = host_stage(JxlImage.from_bytes(data, device=device)
+                              ._frames[0])
         parts.append(host.state.fused_program_parts(host.hf_global))
     key, make_fn, _ = parts[0]
     fn = VardctFrameState.program(key, make_fn, device)
@@ -1033,31 +1097,12 @@ def phase_serving(device) -> dict:
                              f"{ops1} for one")
 
     # the stacked EPF passes of the counted run, on the card's clock
-    rows, errs = [], []
-    for planes, sigma, step, cs, sm, bsm in captured:
-        errs.append(check_kernel(planes, sigma, step, cs, sm, bsm))
-        r = time_pass(planes, sigma, step, cs, sm, bsm)
-        rows.append(r)
-        log(f"serving EPF step {step} {tuple(planes.shape)} "
-            f"{copy_path(planes)}: max|diff| {errs[-1]:.3g}, "
-            f"{pass_line(r)}")
-    if len(rows) != epf_passes(data):
-        raise AssertionError(f"serving: {len(rows)} stacked flagship "
+    if len(captured) != epf_passes(data):
+        raise AssertionError(f"serving: {len(captured)} stacked flagship "
                              "passes captured")
-
-    def mean(k):
-        return statistics.fmean(r[k] for r in rows)
-
     return {
         "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": mean("warm"),
-        "cold_ms": mean("cold"),
-        "host_us": mean("host_us"),
-        "plain_ms": mean("plain_ms"),
-        "bound_ms": mean("bound_ms"),
-        "bound_by": rows[0]["bound_by"],
-        "cold_share_of_bound": mean("bound_ms") / mean("cold"),
+        **pass_rows("serving", captured),
         "stack": 8,
         "differing_pixels": differing + dev_differing,
         "mp_per_s": {"stacked": mp / t_stacked, "decode_batch": mp / t_batch,
@@ -1065,6 +1110,157 @@ def phase_serving(device) -> dict:
         "enqueue_ms": {"1": e1, "8": e8},
         "device_ops": {"1": ops1, "8": ops8},
     }
+
+
+@contextlib.contextmanager
+def counting_renders():
+    """Within the block, the frames rendered (api.py's cone workers and
+    render/context.py's inline render), each with the decode device its
+    thread saw: a worker without the decode's context would see the CPU."""
+    from jxl_oxide_tpu_torch import api
+    from jxl_oxide_tpu_torch.render import context
+    from jxl_oxide_tpu_torch.utils import options as opts
+
+    seen = []
+
+    def see(frame, device):
+        seen.append((frame, opts.get_decode_device().type))
+
+    with watching(api, "render_frame", see), \
+            watching(context, "render_frame", see):
+        yield seen
+
+
+def phase_animation(device) -> dict:
+    """Multi-frame streams on the card (this slice's path): every keyframe
+    of ANIMATIONS decoded against its expected output, the cone of the
+    last keyframe rendered cold with K1's launches counted (2 per filtered
+    frame rendered; none for the cached keyframes after it), K1 held on a
+    [1, 3, 45, 77] plane and on every pass of the counted runs, then
+    timed: per keyframe and per cone, warm median of 5, and one traced
+    cone by span and kernel. Returns K1's rows of the animation paths."""
+    import torch
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda import epf as kernel
+    from jxl_oxide_tpu_torch.ops.cuda import epf_measure as em
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+
+    # K1 on a plane smaller than one tile, W % 4 != 0 (cp.async)
+    p, s = em.epf_inputs((3, 45, 77), seed=45)
+    planes = torch.from_numpy(p).to(device)[None]
+    sigma = torch.from_numpy(s).to(device)[None]
+    worst = max(check_kernel(planes, sigma, step, em.CHANNEL_SCALE, sm,
+                             em.BORDER_SAD_MUL) for step, sm in em.STEPS)
+    log(f"animation: epf steps 0-2 on (1, 3, 45, 77) cp.async: max|diff| "
+        f"{worst:.3g}")
+
+    paths = {}
+    for name, passes, exact in ANIMATIONS:
+        data, ref = read_fixture(name)
+        if name == "animation_4f_blend":
+            ref = np.stack(animation_4f_frames())
+        elif ref.ndim == 3:
+            ref = ref[None]
+        img = JxlImage.from_bytes(data, device=device)
+        last = img.num_keyframes - 1
+        cone, _ = img._dependency_cone(img._keyframe_index(last))
+
+        # the counted run: the last keyframe's cone, cold
+        captured = []
+
+        def keep(planes, sigma, step, cs, sm, bsm):
+            captured.append((planes.clone(), sigma.clone(), step, cs, sm,
+                             bsm))
+
+        epf_step_cuda.launches = 0
+        sq.inv_squeeze_cuda.launches = 0
+        with counting_renders() as seen, watching(kernel, "epf_step_cuda",
+                                                  keep):
+            u8 = {last: img.render_frame(last).to_u8()}
+        launches = epf_step_cuda.launches
+        squeezes = sq.inv_squeeze_cuda.launches
+        rendered = len(seen)
+        devices = {d for _, d in seen}
+        log(f"{name}: keyframe {last} cold: {len(seen)} frames rendered "
+            f"(cone {len(cone)}) on {sorted(devices)}, EPF launches "
+            f"{launches} ({passes} per frame), squeeze launches {squeezes}")
+        if len(seen) != len(cone) or devices != {device.type}:
+            raise AssertionError(f"{name}: frames rendered {len(seen)} on "
+                                 f"{devices}, cone {len(cone)} on "
+                                 f"{device.type}")
+        if launches != passes * len(seen) or squeezes:
+            raise AssertionError(f"{name}: {launches} EPF launches for "
+                                 f"{len(seen)} frames of {passes} passes")
+        # the keyframes before it: those its cone composited come from the
+        # cache (no render, no launch), the others render their own cones
+        hits = []
+        for k in range(last):
+            cached = img._keyframe_cache.get(k)
+            kcone, _ = img._dependency_cone(img._keyframe_index(k))
+            epf_step_cuda.launches = 0
+            with counting_renders() as seen:
+                u8[k] = img.render_frame(k).to_u8()
+            if cached is not None:
+                hits.append(k)
+                ok = (img._keyframe_cache.get(k) is cached and not seen
+                      and not epf_step_cuda.launches)
+            else:
+                ok = (len(seen) == len(kcone)
+                      and epf_step_cuda.launches == passes * len(seen))
+            if not ok:
+                raise AssertionError(
+                    f"{name}: keyframe {k} (cached: {cached is not None}) "
+                    f"rendered {len(seen)} frames with "
+                    f"{epf_step_cuda.launches} EPF launches")
+        got = np.stack([u8[k] for k in range(last + 1)])
+        diff = max_lsb(got, ref)
+        log(f"{name}: {got.shape}, max |u8 - expected| {diff} over "
+            f"{last + 1} keyframes; cache hits (no render, no EPF launch): "
+            f"keyframes {hits}")
+        if diff > (0 if exact else 1) or not alpha_exact(got, ref):
+            raise AssertionError(f"{name}: decode differs from expected")
+
+        # warm, median of 5: each keyframe on a fresh image (its own cone)
+        # and the last keyframe's cone then every cached keyframe
+        def timed(fn) -> float:
+            fn()
+            ts = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            return statistics.median(ts) * 1e3
+
+        def fresh():
+            return JxlImage.from_bytes(data, device=device)
+
+        per_kf = [timed(lambda k=k: fresh().render_frame(k).to_u8())
+                  for k in range(last + 1)]
+
+        def all_keyframes():
+            im = fresh()
+            for k in range(last, -1, -1):
+                im.render_frame(k).to_u8()
+
+        cone_ms = timed(all_keyframes)
+        mp = got.shape[1] * got.shape[2] / 1e6
+        log(f"{name}: warm median of 5, one keyframe on a fresh image: "
+            + ", ".join(f"{k}: {t:.2f} ms" for k, t in enumerate(per_kf))
+            + f"; every keyframe on one image, last first (the cone of "
+            f"keyframe {last}, then the rest): {cone_ms:.2f} ms ({(last + 1) * mp / cone_ms * 1e3:.2f} "
+            "MP/s of keyframes)")
+        profile_run(name, lambda: fresh().render_frame(last).to_u8(),
+                    sum_spans=True)
+        if captured:
+            paths[name] = {"launches": launches, "frames": rendered,
+                           **pass_rows(name, captured)}
+            paths[name]["max_abs_err"] = max(paths[name]["max_abs_err"],
+                                             worst)
+    return paths
 
 
 def main() -> int:
@@ -1095,8 +1291,10 @@ def main() -> int:
     pyramid = phase_squeeze(device)
     report, squeeze_paths = phase_decode()
     report["paths"]["stacked"] = phase_serving(device)
-    report["max_abs_err"] = max(report["max_abs_err"], worst,
-                                report["paths"]["stacked"]["max_abs_err"])
+    report["paths"].update(phase_animation(device))
+    report["max_abs_err"] = max([report["max_abs_err"], worst]
+                                + [p["max_abs_err"]
+                                   for p in report["paths"].values()])
     squeeze = {
         "name": "inv_squeeze",
         "route": "cuda",

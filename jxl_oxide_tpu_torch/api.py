@@ -3,8 +3,12 @@
 Behavioral parity: jxl-oxide/src/lib.rs (JxlImage/Render) and fb.rs
 (sample conversion); the torch counterpart of jxl_oxide_tpu/api.py over
 the port's envelope. Container and header parsing is a copy of the JAX
-package's (host-side); `render_frame(0)` runs the host entropy stage of
-one keyframe, then its device stage.
+package's (host-side). `render_frame(k)` renders the frames keyframe k
+depends on (its dependency cone, on up to 4 threads), each through the
+host entropy stage and the device stage (render/render.py), composites
+them in order against the reference slots with their blending and
+patches (render/context.py, torch ops on the decode device), and caches
+the keyframes it composites.
   - VarDCT: the host stage is the sequence of jxl_oxide_tpu/serving.py
     `_host_stage_fast`, its alpha leg included (the frame's modular
     sub-streams decode beside the HF sections); the device stage the
@@ -14,15 +18,19 @@ one keyframe, then its device stage.
     runs the inverse transforms when the gate keeps them on the host; the
     device stage runs them otherwise (models/modular.py, the squeeze as a
     CUDA kernel), then the render tail (render/render.py).
-Then YCbCr -> RGB for YCbCr frames and the color tail; the EPF is a CUDA
-kernel on both. An alpha channel passes through unfiltered, and the
-render tail applies the EXIF orientation (1-8) before the interleave.
+Then YCbCr -> RGB for YCbCr frames and the color tail (before blending
+for a blending frame, render/context.py `_convert_color_for_record`);
+the EPF is a CUDA kernel on both. An alpha channel passes through
+unfiltered, and the render tail applies the EXIF orientation (1-8)
+before the interleave.
 Streams outside the envelope raise JxlNotSupportedError naming the
 ROADMAP item that will port them; none decodes through a hidden path.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
+import contextvars
 from dataclasses import dataclass
 
 import numpy as np
@@ -30,7 +38,7 @@ import torch
 
 from .color.icc import decode_icc, read_icc
 from .device import resolve_device
-from .headers.frame import Encoding
+from .headers.frame import BlendMode, Encoding, FrameType
 from .headers.image import (
     ColourEncoding,
     ColourSpace,
@@ -39,14 +47,22 @@ from .headers.image import (
 )
 from .io.bitstream import Bitstream
 from .io.container import ContainerParser
+from .render.context import KeyframeRender, RenderContext, planes_bytes
 from .render.frame import Frame
+from .render.render import render_frame
+from .utils.alloc import (
+    AllocTracker,
+    release_alloc,
+    track_alloc,
+    use_tracker,
+)
 from .utils.errors import (
     JxlEofError,
     JxlNotSupportedError,
     JxlValidationError,
 )
 from .utils.options import use_decode_device
-from .utils.trace import span, traced
+from .utils.trace import span
 
 __all__ = ["JxlImage", "Render"]
 
@@ -143,33 +159,10 @@ class Render:
 
     def stream(self):
         raise JxlNotSupportedError(
-            "ImageStream is not ported yet (ROADMAP Queue 1 item 9)")
+            "ImageStream is not ported yet (ROADMAP Queue 1 item 9b)")
 
 
-@dataclass
-class HostStage:
-    """What the host entropy stage of a VarDCT frame hands to the device
-    stage."""
-
-    state: object       # render.vardct.VardctFrameState
-    hf_global: object   # render.vardct.HfGlobal
-    frame: Frame
-    # the alpha channel's integer samples (numpy), or None
-    alpha: np.ndarray | None = None
-
-
-@dataclass
-class ModularHostStage:
-    """What the host stage of a Modular frame hands to the device stage:
-    the frame's ModularImage, and its original channels when the host ran
-    the inverse transforms (None when the device tail will)."""
-
-    modular: object     # models.modular.ModularImage
-    channels: list | None
-    frame: Frame
-
-
-def _not_supported(what: str, item: int):
+def _not_supported(what: str, item):
     return JxlNotSupportedError(
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
     )
@@ -180,14 +173,19 @@ class JxlImage:
 
     device: where the device stage runs; None means CUDA, and with no
     CUDA device the constructor raises. Pass device="cpu" explicitly to
-    run the plain torch versions on the CPU."""
+    run the plain torch versions on the CPU. approx_memory_limit bounds
+    the decode's tracked allocations (reference slots, retained keyframe
+    canvases; the reference's AllocTracker) and the keyframe cache."""
 
-    def __init__(self, device=None, num_threads: int | None = None):
+    def __init__(self, device=None, num_threads: int | None = None,
+                 approx_memory_limit: int | None = None):
         self.device = resolve_device(device)
         if num_threads is not None:
             from .utils.threads import set_num_threads
 
             set_num_threads(num_threads)
+        self._tracker = (AllocTracker(approx_memory_limit)
+                         if approx_memory_limit else None)
         self._parser = ContainerParser()
         self._codestream = bytearray()
         self.image_header: ImageHeader | None = None
@@ -195,6 +193,7 @@ class JxlImage:
         self._frames: list[Frame] = []
         self._frames_complete = False
         self._header_bs: Bitstream | None = None
+        self._keyframe_cache: dict[int, KeyframeRender] = {}
 
     # -- construction (copy of jxl_oxide_tpu/api.py:339-464) ---------------
 
@@ -338,19 +337,24 @@ class JxlImage:
 
     # -- rendering ----------------------------------------------------------
 
-    def _check_envelope(self, keyframe_idx: int) -> Frame:
-        """The port's envelope: one keyframe with no features, upsampling
-        or LF frame, any EXIF orientation, at most one extra channel (an
-        alpha with integer samples at full resolution: the JAX package's
-        stacked-serving envelope, jxl_oxide_tpu/serving.py:121-126), and
-        an XYB or enum sRGB/linear RGB colour encoding (so three colour
-        channels); VarDCT 4:4:4 or chroma-subsampled YCbCr (4:2:0, 4:2:2,
-        4:4:0), or Modular (4:4:4 YCbCr included) with integer or float
-        samples. Anything else raises JxlNotSupportedError naming the
-        ROADMAP item that will port it."""
+    @property
+    def is_animation(self) -> bool:
+        return self.image_header.metadata.animation is not None
+
+    # -- the envelope -------------------------------------------------------
+
+    def _check_envelope(self, frame_indices) -> None:
+        """The port's envelope, for the image and each frame of
+        `frame_indices` (a keyframe's dependency cone: a frame that is not
+        the target can carry what the target does not). Image: any EXIF
+        orientation, at most one extra channel (an alpha with integer
+        samples at full resolution), an XYB or enum sRGB/linear RGB colour
+        encoding (so three colour channels). Frames: any number, blended,
+        cropped or reference-only, with patches; VarDCT 4:4:4 or
+        chroma-subsampled YCbCr (4:2:0, 4:2:2, 4:4:0), or Modular (4:4:4
+        YCbCr included) with integer or float samples. Anything else raises
+        JxlNotSupportedError naming the ROADMAP item that will port it."""
         meta = self.image_header.metadata
-        if keyframe_idx != 0 or self.num_keyframes != 1 or len(self._frames) != 1:
-            raise _not_supported("multi-frame streams and animation", 9)
         if len(meta.ec_info) > 1 or any(
                 info.ty != ExtraChannelType.ALPHA or info.bit_depth.is_float
                 for info in meta.ec_info):
@@ -358,7 +362,8 @@ class JxlImage:
                 "extra channels other than one integer alpha (spot colours, "
                 "float alpha and other types)", 17)
         if any(info.dim_shift for info in meta.ec_info):
-            raise _not_supported("alpha at a lower resolution (dim_shift)", 9)
+            raise _not_supported("alpha at a lower resolution (dim_shift)",
+                                 "9b")
         ce = meta.colour_encoding
         if not meta.xyb_encoded and (
             ce.want_icc
@@ -368,123 +373,32 @@ class JxlImage:
             raise _not_supported(
                 "colour encodings other than XYB or sRGB/linear RGB enums", 15
             )
-        fr = self._frames[0]
-        header = fr.header
-        subsampled = any(j != 0 for j in header.jpeg_upsampling)
-        if header.encoding == Encoding.VARDCT:
-            if header.do_ycbcr and not subsampled:
-                raise _not_supported("4:4:4 YCbCr VarDCT", 7)
-        elif header.do_ycbcr and subsampled:
-            raise _not_supported("chroma-subsampled YCbCr Modular frames", 7)
-        if (
-            header.upsampling != 1
-            or any(u != 1 for u in header.ec_upsampling)
-            or header.lf_level != 0
-            or header.flags.use_lf_frame
-            or header.flags.patches
-            or header.flags.splines
-            or header.flags.noise
-            or not header.is_last
-            or header.x0 or header.y0
-            or header.sample_width() != self.image_header.size.width
-            or header.sample_height() != self.image_header.size.height
-        ):
-            raise _not_supported(
-                "upsampling (EC upsampling included), LF frames, "
-                "patches/splines/noise and cropped frames", 9
-            )
-        return fr
+        for i in frame_indices:
+            header = self._frames[i].header
+            flags = header.flags
+            if flags.splines or flags.noise:
+                raise _not_supported("splines and noise", "9a-rest")
+            if (header.frame_type == FrameType.LF_FRAME
+                    or flags.use_lf_frame or header.lf_level != 0):
+                raise _not_supported("LF frames", "9b")
+            if header.upsampling != 1 or any(
+                    u != 1 for u in header.ec_upsampling):
+                raise _not_supported(
+                    "upsampling (EC upsampling included)", "9b")
+            subsampled = any(j != 0 for j in header.jpeg_upsampling)
+            if header.encoding == Encoding.VARDCT:
+                if header.do_ycbcr and not subsampled:
+                    raise _not_supported("4:4:4 YCbCr VarDCT", 7)
+            elif header.do_ycbcr and subsampled:
+                raise _not_supported(
+                    "chroma-subsampled YCbCr Modular frames", 7)
 
-    @traced("Host entropy stage")
-    def _host_stage(self, keyframe_idx: int = 0):
-        """Headers of the frame's sections plus the C++ entropy decode: into
-        whole-frame coefficient planes and the alpha channel for a VarDCT
-        frame (jxl_oxide_tpu/serving.py `_host_stage_fast`), into the
-        Modular channel slots for a Modular frame, whose inverse
-        transforms run here when the gate keeps them on the host. Returns a
-        HostStage or a ModularHostStage."""
-        fr = self._check_envelope(keyframe_idx)
-        # the decode's device decides whether the modular tail may leave the
-        # host (utils/options.py), for the frame and its group sub-images
-        with use_decode_device(self.device):
-            if fr.header.encoding == Encoding.MODULAR:
-                return self._modular_host_stage(fr)
-            return self._vardct_host_stage(fr)
-
-    def _modular_host_stage(self, fr: Frame) -> ModularHostStage:
-        modular = fr.decode_modular_sections()
-        chans = None
-        if not modular.device_tail_selected():
-            with span("Modular tail"):
-                chans = modular.finish()
-        return ModularHostStage(modular, chans, fr)
-
-    def _vardct_host_stage(self, fr: Frame) -> HostStage:
-        from .render.vardct import (
-            HfGlobal,
-            VardctFrameState,
-            _decode_lf_groups_batch,
-            _decode_pass_groups_batch,
-            parse_lf_group,
-        )
-
-        header = fr.header
-        lf_global = fr.parse_lf_global()
-        gmod = lf_global.gmodular
-        # a VarDCT frame's modular image holds its extra channels only (the
-        # envelope: one alpha); its sub-streams follow the LF and HF data
-        # of the sections (jxl-frame pass_group.rs:139)
-        modular = gmod.modular
-        if modular is not None:
-            mlf_groups, pass_groups = modular.prepare_groups(fr.pass_shifts)
-        else:
-            mlf_groups, pass_groups = {}, [{}]
-
-        def sub_of(p, g):
-            return pass_groups[p].get(g) if p < len(pass_groups) else None
-
-        state = VardctFrameState(fr)
-        if fr.toc.is_single_entry:
-            bs = fr._single_bs
-            state.place_lf_group(0, parse_lf_group(
-                bs, fr.image_header, header, lf_global, 0, mlf_groups.get(0)
-            ))
-            hf_global = HfGlobal(bs, fr.image_header, header, lf_global)
-            for p in range(header.passes.num_passes):
-                state.decode_pass_group_hf(bs, hf_global, p, 0)
-                fr._decode_pass_group(bs, p, 0, sub_of(p, 0), gmod)
-        else:
-            lf_jobs = list(range(header.num_lf_groups))
-            done = _decode_lf_groups_batch(fr, state, lf_global, lf_jobs,
-                                           mlf_groups)
-            for lf_idx in (i for i in lf_jobs if i not in done):
-                bs = Bitstream(
-                    fr.section_bytes(fr.toc.entry_for("lf_group", lf_idx))
-                )
-                state.place_lf_group(lf_idx, parse_lf_group(
-                    bs, fr.image_header, header, lf_global, lf_idx,
-                    mlf_groups.get(lf_idx),
-                ))
-            bs = Bitstream(fr.section_bytes(fr.toc.entry_for("hf_global")))
-            hf_global = HfGlobal(bs, fr.image_header, header, lf_global)
-            by_group: dict[int, list] = {}
-            for p in range(header.passes.num_passes):
-                for g in range(header.num_groups):
-                    by_group.setdefault(g, []).append((p, g))
-            leftover = _decode_pass_groups_batch(
-                fr, state, hf_global, by_group, pass_groups, gmod
-            )
-            for jobs in leftover:
-                for p, g in jobs:
-                    bs = Bitstream(
-                        fr.section_bytes(fr.toc.entry_for("group_pass", g, p))
-                    )
-                    state.decode_pass_group_hf(bs, hf_global, p, g)
-                    fr._decode_pass_group(bs, p, g, sub_of(p, g), gmod)
-        alpha = None
-        if modular is not None:
-            alpha = modular.finish()[gmod.extra_channel_from]
-        return HostStage(state, hf_global, fr, alpha)
+    def _keyframe_index(self, keyframe_idx: int) -> int:
+        """Codestream index of keyframe `keyframe_idx`."""
+        kf_indices = self._keyframe_global_indices()
+        if not 0 <= keyframe_idx < len(kf_indices):
+            raise IndexError(keyframe_idx)
+        return kf_indices[keyframe_idx]
 
     def _color_transform(self):
         from .color.convert import ColorTransform
@@ -502,57 +416,194 @@ class JxlImage:
             source, target, meta.opsin_inverse_matrix, meta.tone_mapping
         )
 
-    def _device_stage(self, host) -> list:
-        """The device stage on the host stage's output. VarDCT: the fused
-        4:4:4 program, the fused subsampled program or the staged path,
-        then the render tail. Modular: the inverse transforms on the device
-        when the host did not run them, then the render tail. Then YCbCr ->
-        RGB for a YCbCr frame and the color tail. Returns the three [H, W]
-        float32 colour planes, then one plane per extra channel, on
-        self.device."""
-        from .ops.color import ycbcr_to_rgb
-        from .render.render import extra_channel_planes
+    def _final_color(self, color: list, frame_header, ct_done: bool) -> list:
+        """postprocess_keyframe's colour (render/lib.rs:884-994): YCbCr ->
+        RGB, then the transform to the output encoding, unless the canvas
+        was converted before blending (ct_done, lib.rs:934)."""
+        if ct_done:
+            return list(color)
+        if frame_header.do_ycbcr:
+            from .ops.color import ycbcr_to_rgb
 
-        if isinstance(host, ModularHostStage):
-            from .render.render import render_modular_tail
-
-            chans = host.channels
-            if chans is None:
-                float_samples = (
-                    self.image_header.metadata.bit_depth.is_float)
-                with use_decode_device(self.device), span("Modular tail"):
-                    # float samples are converted on the host
-                    chans = host.modular.finish(to_device=not float_samples)
-            planes, extra = render_modular_tail(host.frame, chans,
-                                                self.device)
-        else:
-            from .render.render import render_vardct_tail
-            from .render.vardct import decode_vardct_planes
-
-            state = host.state
-            planes = decode_vardct_planes(state, host.hf_global, self.device)
-            state.trim_coeff_planes()
-            planes = render_vardct_tail(state, planes)
-            extra = [] if host.alpha is None else extra_channel_planes(
-                [host.alpha], self.image_header.metadata.ec_info,
-                planes[0].device)
-        if host.frame.header.do_ycbcr:
-            planes = list(ycbcr_to_rgb(planes[0], planes[1], planes[2]))
+            color = ycbcr_to_rgb(color[0], color[1], color[2])
         tr = self._color_transform()
         if not tr.is_noop:
             with span("Transform to requested color encoding"):
-                planes = list(tr.run(planes))
-        return [*planes, *extra]
+                color = tr.run(list(color))
+        return list(color)
+
+    # -- keyframes: dependency cones, compositing, the cache ----------------
+    #
+    # render_frame(k) renders only the dependency cone of keyframe k
+    # (reference slots and patch sources), releasing each slot after its
+    # last reader in the cone: the reference's lazy handle graph
+    # (jxl-render/src/lib.rs:284-440, 488-607; jxl_oxide_tpu/api.py
+    # 629-910). Keyframes it composites are cached on the device.
+
+    def _keyframe_global_indices(self) -> list[int]:
+        return [i for i, f in enumerate(self._frames)
+                if f.header.is_keyframe]
+
+    @staticmethod
+    def _slot_reads(header) -> set[int]:
+        """Reference slots a frame may read: the blend sources of its
+        channels, or all four with patches (their sources are in LfGlobal,
+        unknown before the decode)."""
+        if header.flags.patches:
+            return {0, 1, 2, 3}
+        binfo = header.blending_info
+        full_replace = (
+            binfo.mode == BlendMode.REPLACE
+            and not header.have_crop
+            and all(e.mode == BlendMode.REPLACE
+                    for e in header.ec_blending_info)
+        )
+        if full_replace:
+            return set()
+        return {binfo.source, *(e.source for e in header.ec_blending_info)}
+
+    def _dependency_cone(self, target: int):
+        """Frame indices (ascending) that must render for frame `target`,
+        and cached keyframes that seed reference slots, keyed by (writer
+        frame index, slot). The walk stops at a keyframe whose canvas is
+        cached: the slot it saved is that canvas. The cached object is
+        pinned here, since the cache may evict it while the cone
+        renders."""
+        frames = self._frames
+        needed = {target}
+        seeds: dict[tuple[int, int], KeyframeRender] = {}
+        kf_of_frame = {g: k for k, g in
+                       enumerate(self._keyframe_global_indices())}
+        stack = [target]
+        while stack:
+            i = stack.pop()
+            for s in self._slot_reads(frames[i].header):
+                for j in range(i - 1, -1, -1):
+                    hj = frames[j].header
+                    if hj.can_reference and hj.save_as_reference == s:
+                        k = kf_of_frame.get(j)
+                        cached = (self._keyframe_cache.get(k)
+                                  if k is not None else None)
+                        if cached is not None and j not in needed:
+                            seeds[(j, s)] = cached
+                        elif j not in needed:
+                            needed.add(j)
+                            stack.append(j)
+                        break
+        return sorted(needed), seeds
+
+    _KEYFRAME_CACHE_CAP = 8
+    # a byte bound on the cached canvases, which live in device memory;
+    # with a decode memory limit, half of that limit
+    _KEYFRAME_CACHE_MAX_BYTES = 512 << 20
+
+    def _cache_store(self, keyframe_idx: int, kf: KeyframeRender) -> None:
+        """FIFO keyframe cache, bounded by count and by bytes; the newest
+        entry always stays (it is the render being returned)."""
+        cache = self._keyframe_cache
+        cache[keyframe_idx] = kf
+        max_bytes = self._KEYFRAME_CACHE_MAX_BYTES
+        if self._tracker is not None:
+            max_bytes = min(max_bytes, self._tracker.limit // 2)
+        total = sum(self._kf_bytes(v) for v in cache.values())
+        while len(cache) > 1 and (len(cache) > self._KEYFRAME_CACHE_CAP
+                                  or total > max_bytes):
+            old = cache.pop(next(iter(cache)))
+            nb = self._kf_bytes(old)
+            total -= nb
+            release_alloc(nb)
+
+    @staticmethod
+    def _kf_bytes(kf: KeyframeRender) -> int:
+        return planes_bytes(kf.color) + planes_bytes(kf.extra)
+
+    def _kf_index_of_frame(self, global_idx: int) -> int:
+        return sum(1 for i, f in enumerate(self._frames)
+                   if f.header.is_keyframe and i < global_idx)
+
+    def _render_cone_frames(self, cone: list[int]) -> dict:
+        """Frame renders of the cone, decoded on up to 4 threads when it
+        has more than one frame (the reference's frame pipelining,
+        jxl-render/src/lib.rs:488-607); compositing stays in order. Each
+        job runs in a copy of the caller's context, so it sees the decode
+        device and the memory tracker: a worker that did not would put
+        the Modular tail back on the host."""
+        if len(cone) <= 1:
+            return {}
+        frames = self._frames
+        device = self.device
+
+        def job(i):
+            if device.type != "cuda":
+                return render_frame(frames[i], device)
+            # a new thread's current CUDA device is the first card
+            with torch.cuda.device(device):
+                return render_frame(frames[i], device)
+
+        with cf.ThreadPoolExecutor(max_workers=min(4, len(cone))) as ex:
+            futs = {i: ex.submit(contextvars.copy_context().run, job, i)
+                    for i in cone}
+            return {i: fut.result() for i, fut in futs.items()}
+
+    def _render_keyframe(self, keyframe_idx: int) -> KeyframeRender:
+        cached = self._keyframe_cache.get(keyframe_idx)
+        if cached is not None:
+            return cached
+        target = self._keyframe_index(keyframe_idx)
+        cone, seeds = self._dependency_cone(target)
+        self._check_envelope(cone)
+        frames = self._frames
+        # the last cone frame that reads each slot
+        last_slot_read: dict[int, int] = {}
+        for i in cone:
+            for s in self._slot_reads(frames[i].header):
+                last_slot_read[s] = i
+        with use_tracker(self._tracker), use_decode_device(self.device):
+            ctx = RenderContext(self.image_header, self.device)
+            # seed events in timeline order: each applies just before the
+            # first cone frame after its writer's position
+            seed_events = sorted(seeds.items())
+            pos = 0
+            rendered = self._render_cone_frames(cone)
+            for i in cone:
+                while pos < len(seed_events) and seed_events[pos][0][0] < i:
+                    (_, s), kf = seed_events[pos]
+                    ctx.set_reference(s, ([p.clone() for p in kf.color],
+                                          [p.clone() for p in kf.extra]))
+                    pos += 1
+                kf = ctx.add_frame(frames[i], fr=rendered.pop(i, None))
+                if kf is not None:
+                    # a retained canvas charges the memory budget
+                    track_alloc(self._kf_bytes(kf))
+                    self._cache_store(self._kf_index_of_frame(i), kf)
+                for s in range(4):
+                    if (ctx.reference[s] is not None
+                            and last_slot_read.get(s, -1) <= i):
+                        ctx.release_slot(s)
+        result = self._keyframe_cache.get(keyframe_idx)
+        if result is None:
+            raise JxlValidationError(
+                "target frame did not produce a keyframe")
+        return result
+
+    def _postprocess(self, kf: KeyframeRender) -> Render:
+        """The Render of a composited keyframe (postprocess_keyframe). Its
+        planes are never the cache's own tensors, which a caller could
+        write into."""
+        color = self._final_color(kf.color, kf.frame.header, kf.ct_done)
+        cached = {id(p) for p in (*kf.color, *kf.extra)}
+        meta = self.image_header.metadata
+        return Render(
+            planes=[p.clone() if id(p) in cached else p for p in color],
+            extra=[p.clone() for p in kf.extra],
+            ec_info=list(meta.ec_info), orientation=meta.orientation,
+            name=kf.name, duration=kf.duration)
 
     def render_frame(self, keyframe_idx: int = 0) -> Render:
-        host = self._host_stage(keyframe_idx)
-        chans = self._device_stage(host)
-        h = host.frame.header
-        meta = self.image_header.metadata
-        return Render(planes=chans[:3], extra=chans[3:],
-                      ec_info=list(meta.ec_info),
-                      orientation=meta.orientation, name=h.name,
-                      duration=h.duration)
+        """Keyframe `keyframe_idx`, composited: its dependency cone is
+        rendered on the decode device, blended and patched against the
+        reference slots, and cached."""
+        return self._postprocess(self._render_keyframe(keyframe_idx))
 
     def render_frame_cropped(self, *args, **kwargs):
         raise JxlNotSupportedError(

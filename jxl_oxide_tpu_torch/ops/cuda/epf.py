@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -138,11 +139,15 @@ def epf_step_cuda(planes: torch.Tensor, sigma: torch.Tensor, step: int,
     out = torch.empty_like(planes)
     launch(_fn(), planes, sigma, out, step, channel_scale, step_multiplier,
            border_sad_mul)
-    _counted.launches += 1
+    with _count_lock:
+        _counted.launches += 1
     return out
 
 
 epf_step_cuda.launches = 0
+# frames of one keyframe render on several threads: `+=` on an attribute
+# is a read and a write, and two launches between them would count once
+_count_lock = threading.Lock()
 # the count lives on the wrapper; `_counted` keeps naming it while a
 # measurement rebinds this module's `epf_step_cuda` to a wrapper of its own
 # (epf_measure.capture_decode)

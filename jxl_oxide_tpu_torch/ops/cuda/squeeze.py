@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -101,11 +102,15 @@ def inv_squeeze_cuda(avg: torch.Tensor, residu: torch.Tensor,
     residu = residu.contiguous()
     out = torch.empty(shape, dtype=torch.int32, device=avg.device)
     launch(_fn(), avg, residu, out, horizontal)
-    _counted.launches += 1
+    with _count_lock:
+        _counted.launches += 1
     return out
 
 
 inv_squeeze_cuda.launches = 0
+# frames of one keyframe render on several threads: `+=` on an attribute
+# is a read and a write, and two launches between them would count once
+_count_lock = threading.Lock()
 # the count lives on the wrapper; `_counted` keeps naming it while a
 # measurement rebinds this module's `inv_squeeze_cuda` to a wrapper of its
 # own (chip_smoke.py)

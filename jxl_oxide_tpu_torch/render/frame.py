@@ -78,15 +78,20 @@ def parse_lf_global(
     allow_partial: bool = False,
 ) -> LfGlobal:
     from ..models import vardct as vardct_mod
+    from ..utils.trace import span
+    from .features import Patches
 
-    # patches, splines and noise (render/features.py) are outside the
-    # port's envelope until ROADMAP Queue 1 item 9 ports them
+    # splines and noise are outside the port's envelope until ROADMAP
+    # Queue 1 item 9a-rest ports them
     flags = frame_header.flags
-    if flags.patches or flags.splines or flags.noise:
+    if flags.splines or flags.noise:
         raise JxlNotSupportedError(
-            "patches/splines/noise are not ported yet (ROADMAP Queue 1 item 9)"
+            "splines/noise are not ported yet (ROADMAP Queue 1 item 9a-rest)"
         )
     patches = splines = noise = None
+    if flags.patches:
+        with span("Decode Patches"):
+            patches = Patches.parse(bs, image_header, frame_header)
 
     # LfChannelDequantization (jxl-vardct lf.rs:11-16)
     if bs.read_bool():

@@ -14,6 +14,13 @@ Extra channels (the port's envelope: one integer alpha) convert with
 their own bit depth and are never filtered (`extra_channel_planes`), on
 both paths.
 
+`render_frame` renders one frame of any kind (keyframe, reference-only,
+cropped) to a FrameRender of frame-sized planes on the device: the host
+entropy stage (`host_stage`), then the device stage (`device_stage`).
+Colour stays as coded (YCbCr for a YCbCr frame, XYB for an XYB image):
+the colour transform runs at compositing (render/context.py) or at the
+end (api.py `_postprocess`).
+
 Behavioral parity: jxl-render/src/render.rs (render_frame), image.rs
 (upsample_jpeg, convert_modular_xyb) and jxl-image lib.rs
 (integer-sample parsing); jxl_oxide_tpu/render/render.py::render_frame.
@@ -21,14 +28,59 @@ Behavioral parity: jxl-render/src/render.rs (render_frame), image.rs
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from ..headers.frame import Encoding
+from ..io.bitstream import Bitstream
 from ..ops.filters import apply_epf, apply_gabor, sigma_map_from_blocks
-from ..utils.trace import traced
+from ..utils.errors import JxlNotSupportedError
+from ..utils.options import use_decode_device
+from ..utils.trace import span, traced
 
-__all__ = ["extra_channel_planes", "render_modular_tail",
-           "render_vardct_tail"]
+__all__ = ["FrameRender", "HostStage", "ModularHostStage", "device_stage",
+           "extra_channel_planes", "host_stage", "render_frame",
+           "render_modular_tail", "render_vardct_tail",
+           "upsample_ec_to_color"]
+
+
+@dataclass
+class FrameRender:
+    """One rendered frame before blending (jxl_oxide_tpu/render/render.py
+    FrameRender): float32 [h, w] planes at the frame's sample size on the
+    decode device, colour as coded, then one plane per extra channel."""
+
+    color: list
+    extra: list
+    frame: object
+    # colour already in the signalled encoding (render/context.py
+    # `_convert_color_for_record`): the final colour tail skips it
+    ct_done: bool = False
+
+
+@dataclass
+class HostStage:
+    """What the host entropy stage of a VarDCT frame hands to the device
+    stage."""
+
+    state: object       # render.vardct.VardctFrameState
+    hf_global: object   # render.vardct.HfGlobal
+    frame: object
+    # the alpha channel's integer samples (numpy), or None
+    alpha: np.ndarray | None = None
+
+
+@dataclass
+class ModularHostStage:
+    """What the host stage of a Modular frame hands to the device stage:
+    the frame's ModularImage, and its original channels when the host ran
+    the inverse transforms (None when the device tail will)."""
+
+    modular: object     # models.modular.ModularImage
+    channels: list | None
+    frame: object
 
 
 def _parse_float_samples(arr: np.ndarray, bit_depth) -> np.ndarray:
@@ -189,3 +241,145 @@ def render_vardct_tail(state, planes: list) -> list:
         out = apply_epf(color, sigma, rf.epf)
         color = [out[0], out[1], out[2]]
     return color
+
+
+@traced("Host entropy stage")
+def host_stage(frame) -> HostStage | ModularHostStage:
+    """Headers of the frame's sections plus the C++ entropy decode: into
+    whole-frame coefficient planes and the alpha channel for a VarDCT
+    frame (jxl_oxide_tpu/serving.py `_host_stage_fast`), into the Modular
+    channel slots for a Modular frame, whose inverse transforms run here
+    when the gate keeps them on the host. The gate reads the decode
+    device of the caller's context (utils/options.py)."""
+    if frame.header.encoding == Encoding.MODULAR:
+        return _modular_host_stage(frame)
+    return _vardct_host_stage(frame)
+
+
+def _modular_host_stage(fr) -> ModularHostStage:
+    modular = fr.decode_modular_sections()
+    chans = None
+    if not modular.device_tail_selected():
+        with span("Modular tail"):
+            chans = modular.finish()
+    return ModularHostStage(modular, chans, fr)
+
+
+def _vardct_host_stage(fr) -> HostStage:
+    from .vardct import (
+        HfGlobal,
+        VardctFrameState,
+        _decode_lf_groups_batch,
+        _decode_pass_groups_batch,
+        parse_lf_group,
+    )
+
+    header = fr.header
+    # each call decodes afresh: a single-section frame reads its groups
+    # from the bitstream its LfGlobal parse leaves behind
+    fr.lf_global = None
+    lf_global = fr.parse_lf_global()
+    gmod = lf_global.gmodular
+    # a VarDCT frame's modular image holds its extra channels only (the
+    # envelope: one alpha); its sub-streams follow the LF and HF data
+    # of the sections (jxl-frame pass_group.rs:139)
+    modular = gmod.modular
+    if modular is not None:
+        mlf_groups, pass_groups = modular.prepare_groups(fr.pass_shifts)
+    else:
+        mlf_groups, pass_groups = {}, [{}]
+
+    def sub_of(p, g):
+        return pass_groups[p].get(g) if p < len(pass_groups) else None
+
+    state = VardctFrameState(fr)
+    if fr.toc.is_single_entry:
+        bs = fr._single_bs
+        state.place_lf_group(0, parse_lf_group(
+            bs, fr.image_header, header, lf_global, 0, mlf_groups.get(0)
+        ))
+        hf_global = HfGlobal(bs, fr.image_header, header, lf_global)
+        for p in range(header.passes.num_passes):
+            state.decode_pass_group_hf(bs, hf_global, p, 0)
+            fr._decode_pass_group(bs, p, 0, sub_of(p, 0), gmod)
+    else:
+        lf_jobs = list(range(header.num_lf_groups))
+        done = _decode_lf_groups_batch(fr, state, lf_global, lf_jobs,
+                                       mlf_groups)
+        for lf_idx in (i for i in lf_jobs if i not in done):
+            bs = Bitstream(
+                fr.section_bytes(fr.toc.entry_for("lf_group", lf_idx))
+            )
+            state.place_lf_group(lf_idx, parse_lf_group(
+                bs, fr.image_header, header, lf_global, lf_idx,
+                mlf_groups.get(lf_idx),
+            ))
+        bs = Bitstream(fr.section_bytes(fr.toc.entry_for("hf_global")))
+        hf_global = HfGlobal(bs, fr.image_header, header, lf_global)
+        by_group: dict[int, list] = {}
+        for p in range(header.passes.num_passes):
+            for g in range(header.num_groups):
+                by_group.setdefault(g, []).append((p, g))
+        leftover = _decode_pass_groups_batch(
+            fr, state, hf_global, by_group, pass_groups, gmod
+        )
+        for jobs in leftover:
+            for p, g in jobs:
+                bs = Bitstream(
+                    fr.section_bytes(fr.toc.entry_for("group_pass", g, p))
+                )
+                state.decode_pass_group_hf(bs, hf_global, p, g)
+                fr._decode_pass_group(bs, p, g, sub_of(p, g), gmod)
+    alpha = None
+    if modular is not None:
+        alpha = modular.finish()[gmod.extra_channel_from]
+    return HostStage(state, hf_global, fr, alpha)
+
+
+@traced("Frame device stage")
+def device_stage(host, device) -> FrameRender:
+    """The device stage on the host stage's output. VarDCT: the fused
+    4:4:4 program, the fused subsampled program or the staged path, then
+    the render tail. Modular: the inverse transforms on the device when
+    the host did not run them, then the render tail. The colour planes
+    stay as coded (no YCbCr -> RGB, no colour transform)."""
+    frame = host.frame
+    meta = frame.image_header.metadata
+    if isinstance(host, ModularHostStage):
+        chans = host.channels
+        if chans is None:
+            with use_decode_device(device), span("Modular tail"):
+                # float samples are converted on the host
+                chans = host.modular.finish(
+                    to_device=not meta.bit_depth.is_float)
+        color, extra = render_modular_tail(frame, chans, device)
+    else:
+        from .vardct import decode_vardct_planes
+
+        state = host.state
+        color = decode_vardct_planes(state, host.hf_global, device)
+        state.trim_coeff_planes()
+        color = render_vardct_tail(state, color)
+        extra = [] if host.alpha is None else extra_channel_planes(
+            [host.alpha], meta.ec_info, color[0].device)
+    return FrameRender(color=list(color), extra=list(extra), frame=frame)
+
+
+def render_frame(frame, device) -> FrameRender:
+    """Decode and filter one frame on `device` (jxl_oxide_tpu/render/
+    render.py render_frame): planes at the frame's sample size, before
+    blending and before the colour transform."""
+    with use_decode_device(device):
+        return device_stage(host_stage(frame), device)
+
+
+def upsample_ec_to_color(fr: FrameRender) -> None:
+    """Extra channels at the colour channels' sample resolution before
+    patch blending (jxl_oxide_tpu/render/render.py upsample_ec_to_color).
+    The port's envelope has no EC upsampling and no dim_shift, so this is
+    the identity; a plane of another size raises."""
+    h, w = fr.frame.header.sample_height(), fr.frame.header.sample_width()
+    if any(tuple(p.shape) != (h, w) for p in fr.extra):
+        raise JxlNotSupportedError(
+            "extra channels at a lower resolution are not ported yet "
+            "(ROADMAP Queue 1 item 9b)")

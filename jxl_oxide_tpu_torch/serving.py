@@ -27,7 +27,9 @@ import numpy as np
 import torch
 
 from .api import JxlImage, _finalize
+from .render.render import host_stage
 from .utils.errors import JxlNotSupportedError
+from .utils.options import use_decode_device
 from .utils.trace import span
 
 __all__ = ["decode_batch", "decode_batch_stacked", "decode_iter"]
@@ -97,24 +99,39 @@ def _host_stage_fast(img: JxlImage, frame: int):
     """The host entropy stage of a stream in the stacked envelope:
     (state, hf_global, frame_obj, alpha), alpha the integer samples of the
     image's alpha channel or None; None when the stream takes the
-    per-image path. The envelope: one VarDCT keyframe
-    inside the port's envelope (api.py `_check_envelope`: 4:4:4 or
-    chroma-subsampled, at most one full-resolution integer alpha, no
-    features, upsampling or LF frame, XYB or enum RGB colour) and
-    orientation 1: after the fused program the image pipeline is then
-    exactly ([YCbCr -> RGB] -> colour transform -> interleave -> quantize)
-    with the alpha passed through, all pointwise, so it applies to a whole
-    stack at once. Streams outside the port's envelope raise
-    JxlNotSupportedError here (the caller routes them to the per-image
-    path, which raises it again)."""
+    per-image path. The envelope: a stream of one frame, keyframe 0 asked
+    for (jxl_oxide_tpu/serving.py:127-129: a multi-frame stream
+    composites, and goes per image), one VarDCT frame inside the port's
+    envelope (api.py `_check_envelope`: 4:4:4 or chroma-subsampled, at
+    most one full-resolution integer alpha, no upsampling or LF frame,
+    XYB or enum RGB colour) that covers the canvas as it is (no crop
+    offset, the image's size, no patches; the stacked program returns
+    frame-sized planes and composites nothing, jxl_oxide_tpu/serving.py
+    :146-161) and orientation 1: after the fused program the image
+    pipeline is then exactly ([YCbCr -> RGB] -> colour transform ->
+    interleave -> quantize) with the alpha passed through, all
+    pointwise, so it applies to a whole stack at once. Streams outside
+    the port's envelope raise JxlNotSupportedError here (the caller
+    routes them to the per-image path, which raises it again)."""
     from .headers.frame import Encoding
 
-    fr = img._check_envelope(frame)
-    if (img.image_header.metadata.orientation != 1
-            or fr.header.encoding != Encoding.VARDCT):
+    if frame != 0 or img.num_keyframes != 1 or img.num_frames != 1:
         return None
-    host = img._host_stage(frame)
-    return host.state, host.hf_global, fr, host.alpha
+    img._check_envelope([0])
+    fr = img._frames[0]
+    header = fr.header
+    size = img.image_header.size
+    if (img.image_header.metadata.orientation != 1
+            or header.encoding != Encoding.VARDCT
+            or header.flags.patches
+            or not header.is_last
+            or header.have_crop or header.x0 or header.y0
+            or header.sample_width() != size.width
+            or header.sample_height() != size.height):
+        return None
+    with use_decode_device(img.device):
+        host = host_stage(fr)
+    return host.state, host.hf_global, host.frame, host.alpha
 
 
 def _tail_key(img: JxlImage, fr) -> tuple:

@@ -93,7 +93,7 @@ def test_modular_alpha_device_tail_matches_jax(device_tail):
     the device tail."""
     name = "modular_squeeze"
     data = STREAMS[name]()
-    host = JxlImage.from_bytes(data, device="cpu")._host_stage(0)
+    host = tp.torch_host_stage(data)
     assert host.channels is None  # the device tail will run
     _check(name)
 
@@ -106,7 +106,7 @@ def test_alpha_host_stage_decodes_the_ec():
 
     alpha = _rng_alpha(300, 260, 2)
     data = tp.tiled_stream(300, 260, 4, types=[0], alpha=alpha)
-    host = JxlImage.from_bytes(data, device="cpu")._host_stage(0)
+    host = tp.torch_host_stage(data)
     np.testing.assert_array_equal(host.alpha, alpha)
     jax_alpha = _host_stage_fast(JaxImage.from_bytes(data), 0)[3]
     np.testing.assert_array_equal(host.alpha / np.float32(255), jax_alpha)

@@ -290,3 +290,98 @@ def test_stacked_serving_equals_per_image_on_cuda(cuda):
         assert np.array_equal(img, want), name
         if not name.endswith("_s1"):  # streams committed with a reference
             assert tp.max_lsb(img, tp.fixture(name)[1]) <= 1
+
+
+def test_launch_counts_are_exact_across_threads(cuda):
+    """Frames of one keyframe render on several threads: the EPF and
+    squeeze wrappers count every launch, however the threads interleave."""
+    import threading
+
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+
+    planes = torch.rand(3, 20, 30, device=cuda)
+    sigma = torch.rand(20, 30, device=cuda) * 2
+    avg = torch.randint(-99, 99, (8, 5), dtype=torch.int32, device=cuda)
+    res = torch.randint(-99, 99, (8, 4), dtype=torch.int32, device=cuda)
+    e0, s0 = epf_step_cuda.launches, sq.inv_squeeze_cuda.launches
+
+    def run():
+        for _ in range(300):
+            epf_step_cuda(planes, sigma, 1, CS, 1.0, BSM)
+            sq.inv_squeeze_cuda(avg, res, True)
+
+    threads = [threading.Thread(target=run) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert epf_step_cuda.launches - e0 == 2400
+    assert sq.inv_squeeze_cuda.launches - s0 == 2400
+
+
+# the multi-frame fixtures: (name, EPF passes per frame, exact on the card)
+ANIMATIONS = (("animation_4f_blend", 0, True), ("patch_alpha_256", 0, True),
+              ("anim_blend_epf_512", 2, False), ("crop_epf_77x45", 2, False))
+
+
+@pytest.mark.parametrize("name,passes,exact", ANIMATIONS)
+def test_animation_composites_on_cuda(cuda, name, passes, exact):
+    """Every keyframe of each multi-frame fixture composited on the card,
+    last keyframe first: unfiltered canvases bit for bit the CPU's, the
+    filtered ones within 2e-5 (the EPF kernel against its plain version)
+    and 1 LSB, alpha exactly; K1 launched 2 per filtered frame rendered,
+    none for a cached keyframe."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+
+    with open(f"{tp.TESTDATA}/{name}.jxl", "rb") as f:
+        data = f.read()
+    gpu = JxlImage.from_bytes(data)
+    cpu = JxlImage.from_bytes(data, device="cpu")
+    for k in range(gpu.num_keyframes - 1, -1, -1):
+        # a cached keyframe renders nothing; else its whole cone renders
+        cone, _ = gpu._dependency_cone(gpu._keyframe_index(k))
+        frames = 0 if k in gpu._keyframe_cache else len(cone)
+        before = epf_step_cuda.launches
+        kf = gpu._render_keyframe(k)
+        assert epf_step_cuda.launches - before == passes * frames
+        ref = cpu._render_keyframe(k)
+        for a, b in zip((*kf.color, *kf.extra), (*ref.color, *ref.extra)):
+            assert a.device.type == "cuda"
+            if exact:
+                assert torch.equal(a.cpu(), b)
+            else:
+                assert float((a.cpu() - b).abs().max()) <= 2e-5
+        u8, want = gpu.render_frame(k).to_u8(), cpu.render_frame(k).to_u8()
+        assert tp.max_lsb(u8, want) <= (0 if exact else 1)
+        if u8.shape[-1] == 4:
+            assert np.array_equal(u8[..., 3], want[..., 3])
+
+
+def test_frame_workers_run_on_the_card(cuda, monkeypatch):
+    """The frame-render workers of a CUDA decode see CUDA as the decode
+    device (utils/options.py), so the Modular tail's gate reads the
+    card, not the CPU default."""
+    import threading
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch import api
+    from jxl_oxide_tpu_torch.utils import options as opts
+
+    seen = []
+    real = api.render_frame
+
+    def render(frame, device):
+        seen.append((threading.current_thread() is threading.main_thread(),
+                     opts.get_decode_device().type,
+                     opts.device_modular_may_engage()))
+        return real(frame, device)
+
+    monkeypatch.setattr(api, "render_frame", render)
+    with open(f"{tp.TESTDATA}/anim_blend_epf_512.jxl", "rb") as f:
+        JxlImage.from_bytes(f.read()).render_frame(2)
+    assert seen == [(False, "cuda", True)] * 3

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 import torch_parity as tp
+from jxl_oxide_tpu_torch.render.render import host_stage
 
 
 @pytest.mark.parametrize("name", tp.FIXTURES)
@@ -26,7 +27,7 @@ def test_fixtures_cover_the_main_path():
     for name in tp.FIXTURES:
         img = JxlImage.from_bytes(tp.fixture(name)[0], device="cpu")
         rf = img._frames[0].header.restoration_filter
-        host = img._host_stage(0)
+        host = host_stage(img._frames[0])
         sels = {b.sel for b in host.state.buckets(0)}
         info[name] = (img.width, rf.gab.enabled, rf.epf.iters, sels)
     assert info["flagship_1024"][:3] == (1024, True, 2)
@@ -57,7 +58,7 @@ def test_fixtures_take_their_paths(name, ups, size, path):
     assert (img.height, img.width) == size
     rf = header.restoration_filter
     assert rf.gab.enabled and rf.epf.iters == 2
-    host = img._host_stage(0)
+    host = host_stage(img._frames[0])
     decode_vardct_planes(host.state, host.hf_global, "cpu")
     assert host.state.filters_applied == (path == "subsampled")
     assert host.state.chroma_upsampled == (path == "subsampled")

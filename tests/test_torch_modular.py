@@ -29,6 +29,7 @@ import torch_parity as tp
 from encoder import encode_jxl_modular
 from jxl_oxide_tpu_torch import JxlImage, JxlNotSupportedError
 from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
+from jxl_oxide_tpu_torch.render.render import device_stage, host_stage
 from jxl_oxide_tpu_torch.utils import options as opts
 
 
@@ -237,14 +238,15 @@ def test_decode_matches_jax(name, tail, monkeypatch):
 def test_host_and_device_tails_render_alike(device_tail, monkeypatch):
     data = END_TO_END["gabor_epf2"][0]()
     ours = JxlImage.from_bytes(data, device="cpu")
-    host = ours._host_stage(0)
+    frame = ours._frames[0]
+    host = host_stage(frame)
     assert host.channels is None
-    dev = ours._device_stage(host)
+    dev = device_stage(host, ours.device)
     monkeypatch.setattr(opts, "DEVICE_TAIL_MIN_SAMPLES", 1 << 40)
-    host = ours._host_stage(0)
+    host = host_stage(frame)
     assert host.channels is not None
-    ref = ours._device_stage(host)
-    for a, b in zip(dev, ref):
+    ref = device_stage(host, ours.device)
+    for a, b in zip([*dev.color, *dev.extra], [*ref.color, *ref.extra]):
         assert torch.equal(a, b)
 
 
@@ -283,10 +285,10 @@ def test_fixtures_take_their_tails(name, size, filters, device_tail_on_cuda,
     assert (img.width, img.height) == (size, size)
     assert (rf.gab.enabled, rf.epf.iters if rf.epf.enabled else 0) == filters
     assert img.image_header.metadata.xyb_encoded == (name == "modular_xyb_512")
-    on_cpu = img._host_stage(0)
+    on_cpu = host_stage(img._frames[0])
     assert on_cpu.channels is not None
     monkeypatch.setattr(opts, "device_modular_may_engage", lambda: True)
-    host = JxlImage.from_bytes(data, device="cpu")._host_stage(0)
+    host = tp.torch_host_stage(data)
     assert (host.channels is None) == device_tail_on_cuda
     if device_tail_on_cuda:
         assert [s.arr.shape for s in host.modular.slots] == [

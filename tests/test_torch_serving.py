@@ -260,3 +260,109 @@ def test_stacked_program_op_count_does_not_grow():
         assert counts[4] == counts[1] > 100, (name, counts)
         for j in range(4):
             assert torch.equal(outs[4][j], outs[1][0])
+
+
+def _animation(seed: int, blend) -> bytes:
+    """Three 24x32 random frames with an alpha, each after the first
+    blended with `blend` (tests/test_oracle.py:340-356)."""
+    rng = np.random.default_rng(seed)
+    frames = [[rng.integers(0, 256, (24, 32)) for _ in range(4)]
+              for _ in range(3)]
+    return encode_jxl_modular(frames[0], bit_depth=8, extra_alpha=True,
+                              animation_frames=frames, animation_blend=blend)
+
+
+def test_animations_go_per_image_and_single_frames_still_stack(monkeypatch):
+    """Multi-frame streams among flagship-recipe streams: the guard sends
+    them down the per-image path (before any host stage: they composite),
+    and the single-frame VarDCT streams still form one stack."""
+    streams = [tp.vardct_stream(64, 64, 21, gabor=True, epf_iters=2),
+               _animation(1, True),
+               tp.vardct_stream(64, 64, 22, gabor=True, epf_iters=2),
+               _animation(2, False)]
+    for i, data in enumerate(streams):
+        img = JxlImage.from_bytes(data, device="cpu")
+        fast = serving._host_stage_fast(img, 0)
+        assert (fast is None) == (img.num_frames > 1), i
+    stacks, per_image = _groups(monkeypatch, streams)
+    assert stacks == [[0, 2]] and per_image == [1, 3]
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_decode_batch_frame_k_is_render_frame_k(k):
+    """decode_batch(frame=k) and decode_batch_stacked(frame=k) give each
+    stream's keyframe k; keyframe k of a single-frame stream does not
+    exist, and keyframe 0 of it is not taken for keyframe k."""
+    streams = [_animation(3, True), _animation(4, 3)]
+    want = [JxlImage.from_bytes(d, device="cpu").render_frame(k).to_u8()
+            for d in streams]
+    for fn in (decode_batch, decode_batch_stacked):
+        got = fn(streams, frame=k, output="u8", num_workers=2, device="cpu")
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    single = tp.vardct_stream(64, 64, 23)
+    assert serving._host_stage_fast(
+        JxlImage.from_bytes(single, device="cpu"), k) is None or k == 0
+    if k:
+        with pytest.raises(IndexError):
+            decode_batch_stacked([single], frame=k, device="cpu")
+
+
+def _recompose(header, change):
+    """Make a parsed single-frame header one that does not cover the
+    canvas as it is (the in-repo encoders write no such VarDCT frame)."""
+    import dataclasses
+
+    if change == "offset":
+        header.have_crop, header.x0, header.y0 = True, 8, 4
+    elif change == "negative_offset":
+        header.have_crop, header.x0, header.y0 = True, -8, 0
+    elif change == "size":
+        header.width -= 16
+    elif change == "patches":
+        header.flags = dataclasses.replace(
+            header.flags, value=header.flags.value | 0x2)
+    else:
+        header.is_last = False
+
+
+@pytest.mark.parametrize("change", ["offset", "negative_offset", "size",
+                                    "patches", "not_last"])
+def test_frames_that_composite_are_not_stacked(change):
+    """A single-frame VarDCT stream whose frame is cropped (an offset, or
+    a sample size other than the image's), is patched or is not the last
+    frame composites onto the canvas; the stacked program returns
+    frame-sized planes, so _host_stage_fast returns None
+    (jxl_oxide_tpu/serving.py:146-161)."""
+    img = JxlImage.from_bytes(tp.vardct_stream(64, 64, 24), device="cpu")
+    assert serving._host_stage_fast(img, 0) is not None
+    _recompose(img._frames[0].header, change)
+    assert serving._host_stage_fast(img, 0) is None
+
+
+@pytest.mark.parametrize("change", ["offset", "negative_offset"])
+def test_cropped_single_frames_go_per_image(monkeypatch, change):
+    """A cropped single-frame VarDCT stream beside one that stacks: it
+    goes down the per-image path, and its result is the canvas with the
+    frame at its offset, not the frame."""
+    streams = [tp.vardct_stream(64, 64, s, gabor=True, epf_iters=2)
+               for s in (25, 26, 27)]
+    frame_u8 = JxlImage.from_bytes(streams[1], device="cpu").render_frame(
+        0).to_u8()
+    from_bytes = JxlImage.from_bytes
+
+    def cropping(data, **kwargs):
+        img = from_bytes(data, **kwargs)
+        if data is streams[1]:
+            _recompose(img._frames[0].header, change)
+        return img
+
+    monkeypatch.setattr(JxlImage, "from_bytes", staticmethod(cropping))
+    stacks, per_image = _groups(monkeypatch, streams)
+    assert stacks == [[0, 2]] and per_image == [1]
+    got = decode_batch_stacked(streams, num_workers=2, device="cpu")[1]
+    assert got.shape == frame_u8.shape
+    x0, y0 = (8, 4) if change == "offset" else (-8, 0)
+    np.testing.assert_array_equal(
+        got[max(0, y0):64 + min(0, y0), max(0, x0):64 + min(0, x0)],
+        frame_u8[max(0, -y0):64 - max(0, y0), max(0, -x0):64 - max(0, x0)])

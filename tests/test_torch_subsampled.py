@@ -193,12 +193,11 @@ def test_subsampled_takes_the_fused_program():
     """The decode of a 4:2:0 stream runs the fused subsampled program:
     it upsamples and filters in the program, and the render tail only
     crops."""
-    from jxl_oxide_tpu_torch import JxlImage
     from jxl_oxide_tpu_torch.render.vardct import decode_vardct_planes
 
     data = tp.ycbcr_stream(64, 64, tp.CHROMA["420"], seed=2, gabor=True,
                            epf_iters=1)
-    host = JxlImage.from_bytes(data, device="cpu")._host_stage(0)
+    host = tp.torch_host_stage(data)
     planes = decode_vardct_planes(host.state, host.hf_global, "cpu")
     assert host.state.chroma_upsampled and host.state.filters_applied
     assert [tuple(p.shape) for p in planes] == [(64, 64)] * 3

@@ -142,10 +142,18 @@ def jax_host(data: bytes):
 
 def torch_host(data: bytes):
     """(VardctFrameState, HfGlobal) of the port's host stage, on the CPU."""
-    from jxl_oxide_tpu_torch import JxlImage
-
-    host = JxlImage.from_bytes(data, device="cpu")._host_stage(0)
+    host = torch_host_stage(data)
     return host.state, host.hf_global
+
+
+def torch_host_stage(data: bytes):
+    """The port's host stage of a one-frame stream's frame, on the CPU
+    (render/render.py `host_stage`: the first half of every frame render,
+    the device stage the second)."""
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.render.render import host_stage
+
+    return host_stage(JxlImage.from_bytes(data, device="cpu")._frames[0])
 
 
 def jax_parts(data: bytes, rect=None):
@@ -175,3 +183,37 @@ def torch_u8(data: bytes) -> np.ndarray:
 def max_lsb(a: np.ndarray, b: np.ndarray) -> int:
     assert a.shape == b.shape, (a.shape, b.shape)
     return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def jax_image(data: bytes):
+    """The JAX package's JxlImage of `data`."""
+    from jxl_oxide_tpu import JxlImage as JaxImage
+
+    return JaxImage.from_bytes(data)
+
+
+def assert_keyframes_match(data, exact=True, order=None):
+    """Every keyframe of `data` (in `order`, default 0..K-1) from the port
+    on the CPU against the JAX package: u8 and the float32 image; alpha
+    exactly; exact, or (exact=False: filtered frames, float colour
+    transforms) within 1 LSB and 2e-5. Returns the port's JxlImage."""
+    from jxl_oxide_tpu_torch import JxlImage
+
+    ref = jax_image(data)
+    ours = JxlImage.from_bytes(data, device="cpu")
+    assert ours.num_keyframes == ref.num_keyframes
+    assert ours.num_frames == ref.num_frames
+    for k in order or range(ref.num_keyframes):
+        a, b = ours.render_frame(k), ref.render_frame(k)
+        u8, want = a.to_u8(), b.to_u8()
+        f32, want_f32 = a.image(), np.asarray(b.image())
+        if exact:
+            np.testing.assert_array_equal(u8, want, err_msg=f"keyframe {k}")
+            np.testing.assert_array_equal(f32, want_f32)
+        else:
+            assert max_lsb(u8, want) <= 1, f"keyframe {k}"
+            np.testing.assert_allclose(f32, want_f32, atol=2e-5, rtol=0)
+        if u8.shape[-1] == 4:
+            np.testing.assert_array_equal(u8[..., 3], want[..., 3])
+        assert (a.name, a.duration) == (b.name, b.duration)
+    return ours

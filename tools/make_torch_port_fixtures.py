@@ -5,10 +5,12 @@ Runs with JAX (the streams come from the in-repo encoders, which import
 jxl_oxide_tpu). For each stream it writes, into jxl_oxide_tpu_torch/
 testdata/:
   <name>.jxl   the codestream
-  <name>.npz   {"u8": jxl_oxide_tpu's render_frame(0).to_u8()}, compressed
-               (not for the STREAM_ONLY names: the serving phase of
-               chip_smoke.py holds those against the port's own per-image
-               decode)
+  <name>.npz   {"u8": jxl_oxide_tpu's render_frame(0).to_u8()}, compressed;
+               for a stream of several keyframes, every keyframe's
+               [K, H, W, C] (not for the STREAM_ONLY names: the serving
+               phase of chip_smoke.py holds those against the port's own
+               per-image decode, and animation_4f_blend against its
+               seeded input frames)
 
 The port's chip smoke test and its CPU tests decode the .jxl files with
 jxl_oxide_tpu_torch and compare with the .npz references; a machine
@@ -175,13 +177,56 @@ def flagship_alpha(seed, alpha_seed):
                                    alpha=smooth_alpha(h, w, alpha_seed))
 
 
+def animation_4f_frames():
+    """The input frames of bench.py's animation_4f_blend case
+    (bench.py:207-218), unchanged: seed 7, 512^2, four frames of three
+    8-bit planes, each a small random walk from the one before."""
+    rng = np.random.default_rng(7)
+    frames = [[rng.integers(0, 200, (512, 512), dtype=np.int64)
+               for _ in range(3)]]
+    for _ in range(3):
+        frames.append([np.clip(c + rng.integers(-8, 9, c.shape), 0, 255)
+                       for c in frames[-1]])
+    return frames
+
+
+def anim_blend_epf_512():
+    """Three 512^2 frames of smooth colour and a smooth alpha, each after
+    the first blended over slot 1 with its alpha (animation_blend=True:
+    BlendMode Blend, every frame saved to slot 1), gaborish + 2 EPF
+    passes on every frame."""
+    from encoder import encode_jxl_modular
+
+    frames = [smooth_u8(512, 512, 30 + 2 * k)
+              + [smooth_alpha(512, 512, 31 + 2 * k)] for k in range(3)]
+    return encode_jxl_modular(frames[0], bit_depth=8, extra_alpha=True,
+                              animation_frames=frames, animation_blend=True,
+                              gabor=True, epf_iters=2)
+
+
+def patch_alpha_256():
+    """A reference-only frame (colour and alpha) saved to slot 0, and a
+    256^2 keyframe that patches a 100x90 rect of it over itself with
+    BlendAbove (PatchBlendMode 4) on colour and alpha: the recipe of
+    tests/test_oracle.py:416-436 at 256^2, smooth content."""
+    from encoder import encode_jxl_modular
+
+    base = smooth_u8(256, 256, 40) + [smooth_alpha(256, 256, 41)]
+    ref = smooth_u8(256, 256, 42) + [smooth_alpha(256, 256, 43)]
+    spec = dict(ref_idx=0, x0=16, y0=24, width=100, height=90, x=60, y=70,
+                mode=4, ec_modes=[4], clamp=False)
+    return encode_jxl_modular(base, bit_depth=8, extra_alpha=True,
+                              reference_patch=(ref, spec))
+
+
 # streams committed without a reference (.npz): the other members of the
 # serving phase's alpha group (each 1024^2 alpha costs about 1 MB: the
-# in-repo encoder spends 8 bits a sample), and the second members of the
-# flagship and 4:2:2 stacks of the cuda serving test
+# in-repo encoder spends 8 bits a sample), the second members of the
+# flagship and 4:2:2 stacks of the cuda serving test, and
+# animation_4f_blend, whose keyframes are its seeded input frames
 STREAM_ONLY = ("flagship_alpha_1024_s1", "flagship_alpha_1024_s2",
                "flagship_alpha_1024_s3", "flagship_1024_s1",
-               "ycbcr422_256_s1")
+               "ycbcr422_256_s1", "animation_4f_blend")
 
 
 def fixtures() -> dict:
@@ -237,13 +282,32 @@ def fixtures() -> dict:
         "orient6_512x384": lambda: encode_jxl_vardct(
             smooth_rgb(384, 512, 14), gabor=True, epf_iters=2,
             orientation=6),
+        # bench.py animation_4f_blend: four full-canvas Replace keyframes
+        # (animation_blend defaults to False: no blending, no slots)
+        "animation_4f_blend": lambda: encode_jxl_modular(
+            animation_4f_frames()[0], bit_depth=8,
+            animation_frames=animation_4f_frames()),
+        "anim_blend_epf_512": anim_blend_epf_512,
+        "patch_alpha_256": patch_alpha_256,
+        # a 77x45 frame cropped onto a 96x64 canvas at (-5, 9), gaborish +
+        # 2 EPF passes: EPF on a plane narrower than one 64x64 tile, with
+        # W % 4 != 0
+        "crop_epf_77x45": lambda: encode_jxl_modular(
+            smooth_u8(45, 77, 44), bit_depth=8, image_size=(64, 96),
+            crop=(-5, 9, 77, 45), gabor=True, epf_iters=2),
     }
 
 
 def reference_u8(data: bytes) -> np.ndarray:
+    """The JAX package's keyframe 0, or every keyframe stacked when the
+    stream has several."""
     from jxl_oxide_tpu import JxlImage
 
-    return JxlImage.from_bytes(data).render_frame(0).to_u8()
+    img = JxlImage.from_bytes(data)
+    if img.num_keyframes == 1:
+        return img.render_frame(0).to_u8()
+    return np.stack([img.render_frame(k).to_u8()
+                     for k in range(img.num_keyframes)])
 
 
 def main(names) -> None:
