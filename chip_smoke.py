@@ -6,10 +6,16 @@ NVIDIA GPU.
 
 Phases, each fatal (non-zero exit, no "ok" line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the native host library (g++), the EPF kernel and the squeeze
-     kernel (nvcc) from the checkout, in parallel, timed; ptxas's
-     registers and spills of each EPF step and each squeeze kernel (a
-     spill is fatal) and the EPF launch geometry;
+  2. build the native host library (g++), the EPF kernel, the squeeze
+     kernel and the squeeze's chain probe (nvcc) from the checkout, in
+     parallel, timed; ptxas's registers and spills of each EPF step and
+     each squeeze kernel (a spill is fatal) and the EPF launch geometry;
+  2b. the squeeze's reachable bound (`phase_probe`): the chain probe
+     (csrc/squeeze_probe.cu: one step of the recurrence alone, operands in
+     registers) at 32 and 1024 lines, its checksums bit for bit the same
+     walk in plain torch, in ns a step (CUDA events) and SM cycles a step
+     (clock64); and the instructions on the squeeze kernels' loop-carried
+     chain, by opcode, read from their SASS (tools/squeeze_sass.py);
   3. the EPF kernel against its plain torch version on the card, steps
      0, 1 and 2, max |diff| <= 2e-5, on shapes that take the TMA copy and
      the cp.async copy (W % 4 != 0), fit in one tile, have more tiles than
@@ -18,12 +24,14 @@ Phases, each fatal (non-zero exit, no "ok" line):
      the card's clock (see `time_pass`), warm and cold, beside its bound;
   3b. the squeeze kernel against its plain torch version on the card, bit
      for bit, horizontal and vertical, on odd and even lengths, no
-     residual, one line, 2048^2, and samples at the INT32 extremes; then a
-     default squeeze pyramid of a 2048^2 plane through the port's device
-     tail and through the host's C++ Squeeze.inverse, bit for bit, timed
-     on the card's clock (a CUDA graph replayed between CUDA events, warm
-     and cold) in Msamples/s beside the host's single-thread rate and the
-     byte bound;
+     residual, one line, misaligned rows and bases, 2048^2, and samples
+     at the INT32 extremes; then a default squeeze pyramid of a 2048^2
+     plane through the port's device tail and through the host's C++
+     Squeeze.inverse, bit for bit, timed on the card's clock (a CUDA graph
+     replayed between CUDA events, warm and cold) in Msamples/s beside the
+     host's single-thread rate, the byte bound and the chain bound, and
+     each of its launches timed on its own (direction, lines, steps, ms,
+     ns a step);
   3c. the EPF kernel on stacks [N, 3, H, W] in one launch, N = 1, 2, 5
      and 8, on the TMA and cp.async copies: bit for bit the N one-image
      launches, and within EPF_ATOL of the plain version on the stack;
@@ -45,8 +53,8 @@ Phases, each fatal (non-zero exit, no "ok" line):
      stage, frame device stage, composite, the rest). For one fixture of each
      path (TIMED) the EPF and squeeze inputs are captured in the counted
      run, the kernels are held against the plain versions on them and
-     timed on them as in phase 3 (a squeeze beside its byte bound, with
-     a logged dependency-chain estimate, `squeeze_chain_estimate_ms`),
+     timed on them as in phase 3 (a squeeze beside its byte bound and its
+     chain bound: its steps times the probe's ns a step),
      and one traced decode is broken down by the port's spans and by
      kernel (torch.profiler);
   5. serving (`phase_serving`): one decode_batch_stacked call over 8 x
@@ -77,7 +85,8 @@ Phases, each fatal (non-zero exit, no "ok" line):
      counted runs' EPF passes held and timed as in phase 3.
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
-The squeeze kernel's timing helpers are here (`squeeze_device_ms`).
+The squeeze's are ops/cuda/squeeze_measure.py (the probe among them);
+tools/squeeze_variants.py times other versions of the squeeze kernel.
 It prints one {"kernels": [...]} JSON line, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}}. It imports neither JAX nor
 jxl_oxide_tpu, and exits non-zero without CUDA or without the package.
@@ -133,28 +142,21 @@ SQUEEZES = {"modular_1024": 1}
 TIMED = ("flagship_1024", "ycbcr420_1024", "staged_1030", "modular_1024")
 # (lines, n) of the squeeze kernel checks: n odd and even, no residual
 # (n = 1), one line (a row for the horizontal kernel, a column for the
-# vertical one), partial blocks and tiles, 2048^2
+# vertical one), partial blocks and tiles, na % 4 of 0 (TMA where nr % 4
+# is 0 too), 1, 2 and 3 (cp.async), more tiles than ring stages, 2048^2;
+# each also on bases off a 16-byte boundary (cp.async)
 SQUEEZE_SHAPES = ((1, 2), (3, 3), (70, 1), (33, 64), (40, 65), (1, 131),
-                  (2048, 2048))
+                  (7, 70), (31, 68), (20, 264), (3, 257), (2048, 2048))
 I32_EDGES = (-2**31, -2**31 + 1, -2**30, -13, -1, 0, 1, 12, 2**30,
              2**31 - 2, 2**31 - 1)
-HBM_BYTES_PER_S = 3.35e12
-# one H100 SXM's float32 rate outside the tensor cores (NVIDIA's data
-# sheet gives no integer-ALU rate): the squeeze's int32 operations are
-# counted against it
-ALU_OPS_PER_S = 67e12
-# int32 operations per squeeze step (two outputs) in the plain formula
-# (ops/modular_tail.py): the tendency's 8 for its differences and 4a-3c-b,
-# 11 for each of its two candidate quotients, 8 for the case test and
-# select; the step's sum, halving (4) and two sums
-SQUEEZE_OPS_PER_STEP = 45
-# an estimate, not a measurement, and not read from this kernel's SASS: the
-# squeeze's loop-carried chain (left -> tendency -> diff -> second -> left)
-# assumed to be about 20 dependent integer instructions a step, each
-# assumed 4 cycles apart on Hopper's fixed-latency integer pipes. It is
-# logged beside the measured times and kept out of the kernels line.
-SQUEEZE_CHAIN_OPS = 20
-INT_OP_CYCLES = 4
+# the squeeze kernels whose loop-carried chain is counted in their SASS,
+# by library
+SASS_KERNELS = (("modular_squeeze", "inv_squeeze_h_kernel"),
+                ("modular_squeeze", "inv_squeeze_v_kernel"),
+                ("squeeze_probe", "squeeze_probe_kernel"))
+# lines of the chain probe: one warp on one SM, and 32 warps on 32 SMs (a
+# 1024-line plane's horizontal squeeze); the bound takes the second
+PROBE_LINES = (32, 1024)
 # (shape, timed): TMA and cp.async copies, one tile and many, H < 3
 KERNEL_SHAPES = (
     ((3, 1024, 1024), True),
@@ -325,9 +327,9 @@ def phase_build() -> None:
             errors[name] = e
         times[name] = time.perf_counter() - t0
 
-    jobs = [("native g++", native.get_lib),
-            ("epf nvcc", lambda: build.load("epf")),
-            ("modular_squeeze nvcc", lambda: build.load("modular_squeeze"))]
+    jobs = [("native g++", native.get_lib)] + [
+        (f"{lib} nvcc", lambda lib=lib: build.load(lib))
+        for lib in build.SOURCES]
     threads = [threading.Thread(target=run, args=job) for job in jobs]
     for t in threads:
         t.start()
@@ -345,11 +347,16 @@ def phase_build() -> None:
         return f"epf step {m.group(1)}" if m else entry
 
     def squeeze_kernel(entry):
-        m = re.search(r"inv_squeeze_[hv]_kernel", entry)
+        m = re.search(r"inv_squeeze_h_kernelILb([01])E", entry)
+        if m:
+            return ("inv_squeeze_h_kernel (TMA)" if m.group(1) == "1"
+                    else "inv_squeeze_h_kernel (cp.async)")
+        m = re.search(r"inv_squeeze_v_kernel|squeeze_probe_kernel", entry)
         return m.group(0) if m else entry
 
     check_ptxas("epf", epf_step)
     check_ptxas("modular_squeeze", squeeze_kernel)
+    check_ptxas("squeeze_probe", squeeze_kernel)
     lib = build.load("epf")
     for step in range(3):
         th, smem, res = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -359,6 +366,50 @@ def phase_build() -> None:
             raise RuntimeError(f"EPF step {step} cannot launch: error {err}")
         log(f"epf step {step}: {th.value} threads, {smem.value} B dynamic "
             f"shared memory per block, {res.value} resident blocks")
+
+
+def phase_probe() -> dict:
+    """The squeeze's reachable bound: the chain probe at PROBE_LINES lines,
+    each line's checksum bit for bit the plain torch walk; then the
+    loop-carried chain of each of SASS_KERNELS counted in its SASS.
+    Returns the probe at the last line count, with the SASS counts."""
+    import importlib.util
+
+    from jxl_oxide_tpu_torch.ops.cuda import build
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze_measure as sm
+
+    want = sm.probe_checksums(*sm.probe_tables(), max(PROBE_LINES),
+                              sm.PROBE_ROUNDS)
+    rows = {}
+    for lines in PROBE_LINES:
+        row = sm.probe(lines)
+        if not bool((row.pop("checksum") == want[:lines]).all()):
+            raise AssertionError(f"squeeze probe at {lines} lines: checksums "
+                                 "differ from the plain walk")
+        rows[lines] = row
+        log(f"squeeze chain probe, {lines} lines x {row['steps']} steps: "
+            f"checksums equal to plain; {row['ns_per_step']:.3f} ns a step "
+            f"(CUDA events), {row['cycles_per_step']:.2f} SM cycles a step "
+            f"(clock64, mean over lines; max {row['cycles_per_step_max']:.2f})"
+            f", so {row['cycles_per_step'] / row['ns_per_step']:.3f} GHz")
+
+    spec = importlib.util.spec_from_file_location(
+        "squeeze_sass", os.path.join(REPO, "tools", "squeeze_sass.py"))
+    sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass)
+    counts = {}
+    for lib, kernel in SASS_KERNELS:
+        c = sass.analyse(build.library_path(lib), kernel)
+        counts[kernel] = c
+        log(f"sass {kernel}: longest dependency path {c['path_instructions']}"
+            f" instructions in a block of {c['block_instructions']}; "
+            f"{c['ops_per_step']} a step on the loop-carried chain "
+            f"({c['steps_on_path']} steps on the path), by opcode over "
+            f"{c['steps_per_period']} step(s): {c['by_opcode']}")
+    out = dict(rows[max(PROBE_LINES)])
+    out["ns_per_step_32_lines"] = rows[min(PROBE_LINES)]["ns_per_step"]
+    out["sass"] = counts
+    return out
 
 
 def check_kernel(planes, sigma, step, cs, sm, bsm) -> float:
@@ -474,106 +525,6 @@ def watching(module, name: str, see):
         setattr(module, name, fn)
 
 
-def max_sm_clock_hz() -> float:
-    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
-    import subprocess
-
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return float(out.stdout.strip().splitlines()[0]) * 1e6
-
-
-def squeeze_chain_estimate_ms(res, horizontal: bool) -> float:
-    """An estimate of one squeeze's dependency-chain time: the serial steps
-    (residual positions along the squeezed axis) times the assumed
-    SQUEEZE_CHAIN_OPS dependent operations of INT_OP_CYCLES each, at the
-    highest SM clock. Lines run in parallel and do not lengthen it. Both
-    constants are assumptions, so this is no bound."""
-    steps = res.shape[1] if horizontal else res.shape[0]
-    return (steps * SQUEEZE_CHAIN_OPS * INT_OP_CYCLES / max_sm_clock_hz()
-            * 1e3)
-
-
-def squeeze_bytes(avg, res) -> int:
-    """Bytes one squeeze must move: avg and the residual read once, the
-    output (as many samples as both) written once, int32."""
-    return 2 * 4 * (avg.numel() + res.numel())
-
-
-def squeeze_bound_ms(avg, res) -> tuple[float, str]:
-    """Least time of one squeeze on these inputs: bytes over the HBM rate
-    against its int32 operations over the ALU rate."""
-    byte_ms = squeeze_bytes(avg, res) / HBM_BYTES_PER_S * 1e3
-    op_ms = SQUEEZE_OPS_PER_STEP * res.numel() / ALU_OPS_PER_S * 1e3
-    return max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations"
-
-
-def graph_ms(run, replays: int = 5, flush=None) -> float:
-    """Device ms of one call of `run` on the card's clock: `run` is
-    captured once in a CUDA graph and replayed between CUDA events, so no
-    host work falls in the window. With `flush`, each replay is timed on
-    its own after `flush()` has pushed the inputs out of the L2 (cold)."""
-    import torch
-
-    run()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        run()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays if flush else 1):
-        if flush:
-            flush()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(1 if flush else replays):
-            graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / (1 if flush else replays))
-    return statistics.fmean(times)
-
-
-def l2_flush():
-    """A function that writes 256 MB on the card, five times the L2."""
-    import torch
-
-    scratch = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
-    return lambda: scratch.fill_(1)
-
-
-def squeeze_device_ms(avg, res, horizontal: bool, cold: bool,
-                      launches: int = 20) -> float:
-    """Device ms of one launch of the squeeze kernel on these inputs, on
-    the card's clock (not counted): warm, `launches` launches on one set
-    in a CUDA graph; cold, the same cycling over enough copies that between
-    two uses of one copy the others move twice the 50 MB L2."""
-    import math
-
-    import torch
-
-    from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
-
-    fn = sq._fn()
-    copies = 1 + math.ceil(2 * 50e6 / squeeze_bytes(avg, res)) if cold else 1
-    shape = (avg.shape[0], avg.shape[1] + res.shape[1]) if horizontal else (
-        avg.shape[0] + res.shape[0], avg.shape[1])
-    sets = [(avg.clone(), res.clone(), torch.empty(shape, dtype=torch.int32,
-                                                   device=avg.device))
-            for _ in range(copies)]
-
-    def run():
-        for i in range(launches):
-            sq.launch(fn, *sets[i % copies], horizontal)
-
-    return graph_ms(run) / launches
-
-
 def squeeze_plain_ms(avg, res, horizontal: bool) -> float:
     from jxl_oxide_tpu_torch.ops import modular_tail as mt
 
@@ -600,28 +551,15 @@ def check_squeeze(avg, res, horizontal: bool) -> None:
             f"{tuple(avg.shape)}, {tuple(res.shape)}): {diff}")
 
 
-def squeeze_pyramid(size: int):
-    """(squeeze, slots, parent): the default squeeze pyramid of one random
-    size x size plane (tools/measure_modular_device.py build_squeeze_case),
-    in the port's own host structures."""
-    from jxl_oxide_tpu_torch.models import modular_transform as mtr
-
-    rng = np.random.default_rng(0)
-    parent = rng.integers(-(1 << 10), 1 << 10, (size, size)).astype(np.int32)
-    sq = mtr.Squeeze()
-    sq.set_default_params([mtr.ChannelInfo(size, size)], 0)
-    slots = [mtr.Slot(parent)]
-    sq.check([mtr.ChannelInfo(size, size)], 0, slots, [])
-    return sq, slots, parent
-
-
-def phase_squeeze(device) -> dict:
-    """The squeeze kernel against its plain version, then the 2048^2
-    pyramid against the host tail, timed; returns the pyramid's row."""
+def phase_squeeze(device, probe: dict) -> dict:
+    """The squeeze kernel against its plain version (also on bases off a
+    16-B boundary), then the 2048^2 pyramid against the host tail, timed
+    whole and launch by launch; returns the pyramid's row."""
     import torch
 
     from jxl_oxide_tpu_torch.models.modular import inverse_transforms_device
     from jxl_oxide_tpu_torch.ops.cuda import squeeze as kernel
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze_measure as sm
 
     rng = np.random.default_rng(0)
     edges = np.array(I32_EDGES, dtype=np.int32)
@@ -636,53 +574,75 @@ def phase_squeeze(device) -> dict:
                 else:
                     avg, res = (rng.integers(-4096, 4096, s).astype(np.int32)
                                 for s in shapes)
-                check_squeeze(torch.from_numpy(avg).to(device),
-                              torch.from_numpy(res).to(device), horizontal)
+                avg = torch.from_numpy(avg).to(device)
+                res = torch.from_numpy(res).to(device)
+                check_squeeze(avg, res, horizontal)
+                if nr:
+                    check_squeeze(sm.misaligned(avg), sm.misaligned(res),
+                                  horizontal)
             log(f"squeeze {'h' if horizontal else 'v'} lines {lines} n {n}: "
-                "equal to plain (random and INT32 extremes)")
+                "equal to plain (random and INT32 extremes, aligned and "
+                "misaligned bases)")
 
     size = 2048
-    sq, slots, _ = squeeze_pyramid(size)
-    planes = [torch.from_numpy(np.ascontiguousarray(s.arr)).to(device)
-              for s in slots]
-    # bytes of the chain: each step reads its avg and residual and writes
-    # its output once
-    moved = []
-    with watching(kernel, "inv_squeeze_cuda",
-                  lambda avg, res, _: moved.append(squeeze_bytes(avg, res))):
-        (got,) = inverse_transforms_device([sq], planes, 16)
-    bytes_total = sum(moved)
+    got, launches = sm.pyramid_on_device(size, device)
     host_s = []
     for _ in range(3):
-        sq_host, slots, parent = squeeze_pyramid(size)
+        sq_host, slots, parent = sm.pyramid(size)
         t0 = time.perf_counter()
         sq_host.inverse(slots, 16)
         host_s.append(time.perf_counter() - t0)
     if not torch.equal(got.cpu(), torch.from_numpy(parent)):
         raise AssertionError("squeeze pyramid: device tail differs from the "
                              "host tail")
+    squeeze, slots, _ = sm.pyramid(size)
+    planes = [torch.from_numpy(np.ascontiguousarray(s.arr)).to(device)
+              for s in slots]
 
     def run():
-        inverse_transforms_device([sq], planes, 16)
+        inverse_transforms_device([squeeze], planes, 16)
 
-    warm = graph_ms(run)
-    cold = graph_ms(run, flush=l2_flush())
+    warm = sm.graph_ms(run)
+    cold = sm.graph_ms(run, cold=True)
+    bytes_total = sum(sm.squeeze_bytes(a, r) for a, r, _ in launches)
+    steps = sum(sm.steps(r, h) for _, r, h in launches)
+    chain = sum(sm.chain_bound_ms(r, h, probe["ns_per_step"])
+                for _, r, h in launches)
+    per_launch = []
+    for avg, res, horizontal in launches:
+        ms = sm.device_ms(kernel._fn(), avg, res, horizontal, cold=False)
+        k = sm.steps(res, horizontal)
+        per_launch.append({
+            "dir": "h" if horizontal else "v",
+            "lines": avg.shape[0] if horizontal else avg.shape[1],
+            "steps": k, "ms": ms, "ns_per_step": ms * 1e6 / k})
     row = {
         "size": size,
-        "steps": len(sq.sp),
+        "launches": len(launches),
+        "steps": steps,
         "warm_ms": warm,
         "cold_ms": cold,
         "device_msps": size * size / warm / 1e3,
         "device_msps_cold": size * size / cold / 1e3,
         "host_msps_1t": size * size / min(host_s) / 1e6,
-        "bound_ms": bytes_total / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": bytes_total / sm.HBM_BYTES_PER_S * 1e3,
+        "chain_bound_ms": chain,
+        "cold_share_of_chain_bound": chain / cold,
+        "per_launch": per_launch,
     }
-    log(f"squeeze pyramid {size}^2 ({row['steps']} steps): equal to the host "
-        f"tail; device warm {warm:.4f} ms ({row['device_msps']:.1f} "
-        f"Msamples/s), cold {cold:.4f} ms ({row['device_msps_cold']:.1f}), "
-        f"host C++ 1 thread {min(host_s) * 1e3:.2f} ms "
-        f"({row['host_msps_1t']:.1f} Msamples/s), byte bound "
-        f"{row['bound_ms']:.4f} ms ({bytes_total} B)")
+    log(f"squeeze pyramid {size}^2 ({len(launches)} launches, {steps} serial "
+        f"steps): equal to the host tail; device warm {warm:.4f} ms "
+        f"({row['device_msps']:.1f} Msamples/s), cold {cold:.4f} ms "
+        f"({row['device_msps_cold']:.1f}), host C++ 1 thread "
+        f"{min(host_s) * 1e3:.2f} ms ({row['host_msps_1t']:.1f} Msamples/s), "
+        f"byte bound {row['bound_ms']:.4f} ms ({bytes_total} B), chain bound "
+        f"{chain:.4f} ms (steps x {probe['ns_per_step']:.3f} ns), cold share "
+        f"of chain bound {chain / cold:.3f}")
+    log("squeeze pyramid launches, each alone (warm, CUDA graph): "
+        "dir lines steps ms ns/step")
+    for r in per_launch:
+        log(f"  {r['dir']} {r['lines']:5d} {r['steps']:5d} {r['ms']:.4f} "
+            f"{r['ns_per_step']:.1f}")
     return row
 
 
@@ -795,35 +755,49 @@ def epf_passes(data: bytes) -> int:
     return epf.iters if epf.enabled else 0
 
 
-def squeeze_row(name: str, captured) -> dict:
+def squeeze_row(name: str, captured, probe: dict) -> dict:
     """The squeeze kernel on the launches captured from one decode: held
     against the plain version, timed warm and cold, per launch (mean over
-    the decode's launches)."""
+    the decode's launches), beside its byte bound and its chain bound (its
+    steps times the probe's ns a step)."""
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze_measure as sm
+
     rows = []
     for avg, res, horizontal in captured:
         check_squeeze(avg, res, horizontal)
-        bound, by = squeeze_bound_ms(avg, res)
+        bound, by = sm.bound_ms(avg, res)
+        steps = sm.steps(res, horizontal)
         row = {
-            "ms": squeeze_device_ms(avg, res, horizontal, cold=False),
-            "cold_ms": squeeze_device_ms(avg, res, horizontal, cold=True),
+            "ms": sm.device_ms(sq._fn(), avg, res, horizontal, cold=False),
+            "cold_ms": sm.device_ms(sq._fn(), avg, res, horizontal,
+                                    cold=True),
             "plain_ms": squeeze_plain_ms(avg, res, horizontal),
             "bound_ms": bound,
             "bound_by": by,
+            "chain_bound_ms": sm.chain_bound_ms(res, horizontal,
+                                                probe["ns_per_step"]),
         }
         rows.append(row)
         log(f"{name} squeeze {'h' if horizontal else 'v'} avg "
             f"{tuple(avg.shape)} residual {tuple(res.shape)}: equal to plain, "
-            f"device warm {row['ms']:.4f} ms, cold {row['cold_ms']:.4f} ms, "
-            f"bound {bound:.4f} ms ({by}), cold share of bound "
-            f"{bound / row['cold_ms']:.3f}, plain {row['plain_ms']:.2f} ms; "
-            f"dependency-chain estimate "
-            f"{squeeze_chain_estimate_ms(res, horizontal):.4f} ms (assumed "
-            f"{SQUEEZE_CHAIN_OPS} ops x {INT_OP_CYCLES} cycles a step at the "
-            f"highest SM clock, not read from this kernel's SASS)")
+            f"device warm {row['ms']:.4f} ms, cold {row['cold_ms']:.4f} ms "
+            f"({row['ms'] * 1e6 / steps:.1f} / "
+            f"{row['cold_ms'] * 1e6 / steps:.1f} ns a step over {steps} "
+            f"steps), chain bound {row['chain_bound_ms']:.4f} ms (by: chain, "
+            f"probe {probe['ns_per_step']:.3f} ns a step; SASS "
+            f"{probe['sass']['inv_squeeze_h_kernel']['ops_per_step']} "
+            "instructions a step on the chain), cold share of "
+            f"chain bound {row['chain_bound_ms'] / row['cold_ms']:.3f}; byte "
+            f"bound {bound:.4f} ms ({by}), cold share "
+            f"{bound / row['cold_ms']:.3f}; plain {row['plain_ms']:.2f} ms")
     out = {k: statistics.fmean(r[k] for r in rows)
-           for k in ("ms", "cold_ms", "plain_ms", "bound_ms")}
+           for k in ("ms", "cold_ms", "plain_ms", "bound_ms",
+                     "chain_bound_ms")}
     out["bound_by"] = rows[0]["bound_by"]
     out["cold_share_of_bound"] = out["bound_ms"] / out["cold_ms"]
+    out["chain_bound_by"] = "chain (probe)"
+    out["cold_share_of_chain_bound"] = out["chain_bound_ms"] / out["cold_ms"]
     return out
 
 
@@ -832,15 +806,17 @@ def squeeze_row(name: str, captured) -> dict:
 SPLIT_SPANS = ("Host entropy stage", "Frame device stage", "Composite")
 
 
-def phase_decode() -> tuple[dict, dict]:
+def phase_decode(probe: dict) -> tuple[dict, dict]:
     """Every fixture through the entry point; returns the EPF kernel's
     report (the main path's numbers with each timed path's beside them)
-    and the squeeze kernel's rows of the timed paths that launch it."""
+    and the squeeze kernel's rows of the timed paths that launch it
+    (`probe`: phase_probe's, for the chain bound)."""
     import torch
 
     from jxl_oxide_tpu_torch import JxlImage
     from jxl_oxide_tpu_torch.ops.cuda import epf_measure as em
     from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze_measure as sm
     from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
 
     paths, squeeze_paths = {}, {}
@@ -849,12 +825,10 @@ def phase_decode() -> tuple[dict, dict]:
         passes = epf_passes(data)
 
         # the counted run: launches of this decode only
-        squeezes = []
         epf_step_cuda.launches = 0
         sq.inv_squeeze_cuda.launches = 0
-        with watching(sq, "inv_squeeze_cuda", lambda a, r, h: squeezes.append(
-                (a.clone(), r.clone(), h))):
-            u8, captured = em.capture_decode(data)
+        (u8, captured), squeezes = sm.capture_launches(
+            lambda: em.capture_decode(data))
         launches = epf_step_cuda.launches
         squeeze_launches = sq.inv_squeeze_cuda.launches
         diff = max_lsb(u8, ref)
@@ -905,7 +879,7 @@ def phase_decode() -> tuple[dict, dict]:
             paths[name] = {"launches": launches, **pass_rows(name, captured)}
             if squeezes:
                 squeeze_paths[name] = {"launches": squeeze_launches,
-                                       **squeeze_row(name, squeezes)}
+                                       **squeeze_row(name, squeezes, probe)}
     main_path = paths[MAIN_PATH]
     return {
         "name": "epf_step",
@@ -1288,8 +1262,9 @@ def main() -> int:
     worst = phase_kernel(device)
     log(f"EPF kernel vs plain: worst max|diff| {worst:.3g} (atol {EPF_ATOL})")
     worst = max(worst, phase_stack_kernel(device))
-    pyramid = phase_squeeze(device)
-    report, squeeze_paths = phase_decode()
+    probe = phase_probe()
+    pyramid = phase_squeeze(device, probe)
+    report, squeeze_paths = phase_decode(probe)
     report["paths"]["stacked"] = phase_serving(device)
     report["paths"].update(phase_animation(device))
     report["max_abs_err"] = max([report["max_abs_err"], worst]
@@ -1301,6 +1276,10 @@ def main() -> int:
         "source": "jxl_oxide_tpu_torch/csrc/modular_squeeze.cu",
         "replaces": "jxl_oxide_tpu/ops/modular_tail.py:82",
         **squeeze_paths[MODULAR_PATH],
+        "probe_ns_per_step": probe["ns_per_step"],
+        "probe_cycles_per_step": probe["cycles_per_step"],
+        "sass_chain_ops": probe["sass"]["inv_squeeze_h_kernel"][
+            "ops_per_step"],
         # integer arithmetic: every comparison above was equality
         "max_abs_err": 0,
         "library_ms": None,

@@ -26,10 +26,28 @@
 
 namespace jxl_squeeze {
 
-// The horizontal kernel: one warp per block takes kRows rows (a thread
-// each) through tiles of kCols squeezed columns staged in shared memory.
+// The horizontal kernel: blocks of one copy warp and one walker warp take
+// kRows rows (a walker thread each) through tiles of kCols squeezed
+// columns, staged in shared memory.
 constexpr int kRows = 32;
 constexpr int kCols = 32;
+// stages of the input ring (a tile's avg, residual and each row's `next`
+// of its last step) and of the output ring (a tile's 2 x kCols outputs a
+// row)
+constexpr int kInStages = 3;
+constexpr int kOutStages = 2;
+// An input stage, in 32-bit words: the avg tile, the residual tile, each
+// kRows x kCols dense with 128-byte rows swizzled as TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B writes them (tile_word), then the rows'
+// `next`. Stages are 1024-byte multiples, the swizzle's period.
+constexpr int kPlaneWords = kRows * kCols;
+constexpr int kNextWord = 2 * kPlaneWords;
+constexpr int kStageWords = (kNextWord + kRows + 255) / 256 * 256;
+// An output stage: kRows rows of 2 x kCols outputs, padded so a row starts
+// 16 bytes (4 banks) after the one before it.
+constexpr int kOutStride = 2 * kCols + 4;
+constexpr int kOutWords = kRows * kOutStride;
+static_assert(kCols == 32, "tile_word swizzles 128-byte rows");
 // Threads per block of the vertical kernel, one column each, and the steps
 // whose loads a thread issues together, a chunk ahead of its walk.
 constexpr int kVThreads = 32;
@@ -92,9 +110,73 @@ __host__ __device__ inline int next_index(int k, int na) {
   return k + 1 < na ? k + 1 : na - 1;
 }
 
+// The chain probe (squeeze_probe.cu), a measurement that no decode runs:
+// a line's walk over kProbeSpan avg and residual values held in registers,
+// cycled through `rounds` times. Line l holds a[j] = tab_avg[(l + j) %
+// kProbeSpan] and r[j] = tab_res[(l + j) % kProbeSpan].
+constexpr int kProbeSpan = 16;
+
+__host__ __device__ inline void probe_load(const int32_t* tab_avg,
+                                           const int32_t* tab_res, int line,
+                                           int32_t (&a)[kProbeSpan],
+                                           int32_t (&r)[kProbeSpan]) {
+  for (int j = 0; j < kProbeSpan; ++j) {
+    a[j] = tab_avg[(line + j) % kProbeSpan];
+    r[j] = tab_res[(line + j) % kProbeSpan];
+  }
+}
+
+// rounds x kProbeSpan steps from left (a[0] at first): step j takes avg
+// a[j], residual r[j] and next a[j + 1] (a[0] after the last). Returns the
+// wrapping sum of every step's two outputs; left ends as the last second.
+__host__ __device__ inline uint32_t probe_walk(
+    const int32_t (&a)[kProbeSpan], const int32_t (&r)[kProbeSpan],
+    int rounds, int32_t* left) {
+  uint32_t sum = 0;
+  for (int k = 0; k < rounds; ++k) {
+#pragma unroll
+    for (int j = 0; j < kProbeSpan; ++j) {
+      int32_t first, second;
+      unsqueeze_step(a[j], r[j], a[(j + 1) % kProbeSpan], left, &first,
+                     &second);
+      sum += static_cast<uint32_t>(first) + static_cast<uint32_t>(second);
+    }
+  }
+  return sum;
+}
+
 // Squeezed positions in the horizontal kernel's tile starting at x0.
 __host__ __device__ inline int tile_cols(int x0, int nr) {
   return nr - x0 < kCols ? nr - x0 : kCols;
+}
+
+// Tiles of the horizontal kernel along a row of nr squeezed positions.
+__host__ __device__ inline int num_tiles(int nr) {
+  return (nr + kCols - 1) / kCols;
+}
+
+// The stage of a ring of `stages` that tile t uses, and the parity of the
+// phase of that stage's barriers that tile t completes.
+__host__ __device__ inline int ring_slot(int t, int stages) {
+  return t % stages;
+}
+
+__host__ __device__ inline uint32_t ring_phase(int t, int stages) {
+  return static_cast<uint32_t>(t / stages) & 1u;
+}
+
+// The word of tile element (row, col) in a stage's avg or residual tile:
+// the 16-byte chunk col / 4 of the row's 128 bytes moves to chunk
+// (col / 4) ^ (row % 8) (TMA's 128-byte swizzle on a 1024-byte aligned
+// tile). A thread per row then reads chunk q of its row, and each 8 rows
+// of a warp's 16-byte reads hit 8 different chunks: all 32 banks.
+__host__ __device__ inline int tile_word(int row, int col) {
+  return row * kCols + ((((col >> 2) ^ row) & 7) << 2) + (col & 3);
+}
+
+// Rows that TMA may copy: 16-byte multiples (the bases are checked apart).
+__host__ __device__ inline bool tma_rows(int na, int nr) {
+  return na % 4 == 0 && nr % 4 == 0;
 }
 
 // The squeezed position that `lane` loads for the tile at x0: lanes past

@@ -11,9 +11,10 @@ from the card to the CPU.
 The recurrence is sequential along the squeezed axis, so the kernel runs
 one thread per line across the other axis and is bound by its chain of
 dependent integer operations, not by its 8 B per output sample
-(csrc/modular_squeeze.cu). `bind` and `launch` serve the timing in
-chip_smoke.py, which launches into outputs it allocated and is not
-counted.
+(csrc/modular_squeeze.cu; the bound, measured by the chain probe, is
+squeeze_measure.py `chain_bound_ms`). `bind` and `launch` serve the
+timing in chip_smoke.py and tools/squeeze_variants.py, which launch into
+outputs they allocated and are not counted.
 """
 
 from __future__ import annotations

@@ -159,10 +159,13 @@ I32_EDGES = (-2**31, -2**31 + 1, -2**30, -13, -1, 0, 1, 12, 2**30,
 
 
 # (lines, n): n odd and even, no residual (n = 1), one line, one
-# squeezed position, partial 32-line blocks and 32-column tiles, 2048^2
+# squeezed position, partial 32-line blocks and 32-column tiles, 2048^2;
+# na % 4 of 0 (the TMA copy when nr % 4 == 0 too), 1, 2 and 3 (cp.async),
+# more tiles than the horizontal kernel's ring stages
 @pytest.mark.parametrize("lines,n", [(1, 2), (3, 3), (70, 1), (33, 64),
                                      (40, 65), (1, 131), (1024, 1024),
-                                     (2048, 2048)])
+                                     (2048, 2048), (7, 70), (31, 68),
+                                     (20, 264), (3, 257), (40, 300)])
 @pytest.mark.parametrize("horizontal", [True, False])
 @pytest.mark.parametrize("extremes", [False, True])
 def test_squeeze_kernel_matches_plain(cuda, lines, n, horizontal, extremes):
@@ -190,6 +193,40 @@ def test_squeeze_kernel_matches_plain(cuda, lines, n, horizontal, extremes):
     assert inv_squeeze_cuda.launches == before + (1 if nr else 0)
     want = (mt.inv_squeeze_h if horizontal else mt.inv_squeeze_v)(avg, res)
     assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lines,n", [(33, 64), (20, 264), (1024, 1024),
+                                     (40, 65), (7, 70)])
+@pytest.mark.parametrize("horizontal", [True, False])
+@pytest.mark.parametrize("extremes", [False, True])
+def test_squeeze_kernel_on_misaligned_bases(cuda, lines, n, horizontal,
+                                            extremes):
+    """The squeeze kernel on planes whose bases are off a 16-byte
+    boundary (the horizontal kernel then takes cp.async, not TMA), bit
+    for bit the plain version."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch.ops import modular_tail as mt
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze import inv_squeeze_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze_measure import misaligned
+
+    rng = np.random.default_rng(lines * n)
+    na, nr = (n + 1) // 2, n // 2
+    shapes = ((lines, na), (lines, nr)) if horizontal else ((na, lines),
+                                                             (nr, lines))
+    if extremes:
+        avg, res = (rng.choice(np.array(I32_EDGES, np.int32), s)
+                    for s in shapes)
+    else:
+        avg, res = (rng.integers(-4096, 4096, s).astype(np.int32)
+                    for s in shapes)
+    avg = misaligned(torch.from_numpy(avg).to(cuda))
+    res = misaligned(torch.from_numpy(res).to(cuda))
+    assert avg.data_ptr() % 16 and res.data_ptr() % 16
+    got = inv_squeeze_cuda(avg, res, horizontal)
+    want = (mt.inv_squeeze_h if horizontal else mt.inv_squeeze_v)(avg, res)
+    torch.cuda.synchronize()
     assert torch.equal(got, want)
 
 
