@@ -82,7 +82,22 @@ Phases, each fatal (non-zero exit, no "ok" line):
      exactly); warm medians of 5 per keyframe and per cone; one traced
      cone by span (host entropy stage, frame device stage, composite,
      summed over threads) and kernel, with the device idle share; the
-     counted runs' EPF passes held and timed as in phase 3.
+     counted runs' EPF passes held and timed as in phase 3;
+  7. colour encodings (`phase_color`, Pillow blocked: no leg of it needs
+     a CMS): each of COLOR_FIXTURES decoded on the card within 1 LSB of
+     its reference (alpha exactly) with its K1 and K9 launches counted
+     (grey_squeeze_2048x1024: its squeeze on the device tail, 1 K9
+     launch, and 2 K1 launches on its plane cloned to three;
+     xyb_hdr_1024: 4000-nit XYB tone-mapped, 2 K1 launches), then
+     flagship_1024 under each requested encoding (REQUESTS, from
+     tools/make_torch_port_fixtures.py) within 1 LSB in u8 and, for PQ and
+     HLG, REQUEST_U16_TOL in u16 of its reference; the launches of the
+     timed fixtures held against the plain versions and timed as in phase
+     3 (K9 beside its chain bound); warm medians of 5 for each decode, end
+     to end and split by span (host entropy stage, frame device stage,
+     composite, transform to requested color encoding, the rest). Pixels
+     whose luminance lands across the tone map's step on the card and on
+     counted, not held (see TONE_MAP_STEP).
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
 The squeeze's are ops/cuda/squeeze_measure.py (the probe among them);
@@ -140,6 +155,35 @@ SQUEEZES = {"modular_1024": 1}
 # one fixture per decode path: fused 4:4:4, fused subsampled, staged (whose
 # EPF runs at the sample width 1030, on the kernel's cp.async copy), Modular
 TIMED = ("flagship_1024", "ycbcr420_1024", "staged_1030", "modular_1024")
+# the colour fixtures (phase_color): (name, K1 launches, K9 launches) of
+# one decode on the card: greyscale with its squeeze on the device tail
+# (2^20-sample halves) and K1 on its plane cloned to three, grey + alpha
+# and bench.py's modular_wp (host tail, no filter), XYB mastered at 4000
+# nits (tone-mapped; at 256^2 relative to its peak), an embedded Display
+# P3 profile (the enum transform)
+COLOR_FIXTURES = (("grey_squeeze_2048x1024", 2, 1), ("grey_alpha_512", 0, 0),
+                  ("modular_wp_256", 0, 0), ("xyb_hdr_1024", 2, 0),
+                  ("xyb_hdr_peak_256", 2, 0), ("icc_p3_512", 0, 0))
+# the colour fixtures whose launches are held and timed (the kernels' rows)
+COLOR_TIMED = ("grey_squeeze_2048x1024", "xyb_hdr_1024")
+# the u16 bound of flagship_1024's PQ and HLG renders against their
+# references, in LSB of 65535: what the CPU tests measure
+# (tests/torch_parity.py REQUEST_U16_TOL)
+REQUEST_U16_TOL = 1
+# The reference's BT.2408 tone map (jxl_oxide_tpu/ops/color.py:287-296,
+# copied by the port) steps at a luminance of |y| = TONE_MAP_STEP: below
+# it a pixel's ratio is y_mapped * scale (about 0: black), above it
+# y_mapped / y * scale (about 15.7 at 4000 nits). A pixel whose colour
+# cancels to a luminance near 0 (out of gamut) can land on the other side
+# of the step under the last-ulp differences K1 is allowed against its
+# plain version (2e-5), and then differs by up to 255 (ROADMAP Queue 3).
+# Such pixels, found by decoding the stream on the CPU too (the plain
+# versions: what the CPU tests hold to the reference) and comparing the
+# side of the step each decode's tone map saw, are counted and printed,
+# not held; every other pixel is held to 1 LSB.
+TONE_MAP_STEP = 1e-7
+# at most this share of a fixture's pixels may cross the step
+TONE_MAP_CROSSED_MAX = 1e-4
 # (lines, n) of the squeeze kernel checks: n odd and even, no residual
 # (n = 1), one line (a row for the horizontal kernel, a column for the
 # vertical one), partial blocks and tiles, na % 4 of 0 (TMA where nr % 4
@@ -806,6 +850,40 @@ def squeeze_row(name: str, captured, probe: dict) -> dict:
 SPLIT_SPANS = ("Host entropy stage", "Frame device stage", "Composite")
 
 
+def log_warm_split(name: str, u8: np.ndarray, run, split_spans) -> None:
+    """Warm timings of run() (one decode), median of 5: end to end, then
+    the same decode split by the port's spans `split_spans` (host clock;
+    the readback in to_u8 waits for the card, so device work queued by
+    the device stage can land in "rest")."""
+    import torch
+
+    def decode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        return (time.perf_counter() - t0) * 1e3
+
+    e2e_ms = [decode() for _ in range(5)]
+    split = {k: [] for k in split_spans + ("rest", "wall")}
+    for _ in range(5):
+        with collecting_spans() as spans:
+            wall = decode()
+        totals = span_totals(spans)
+        parts = [totals.get(k, [0.0])[0] for k in split_spans]
+        for k, v in zip(split_spans, parts):
+            split[k].append(v)
+        split["rest"].append(wall - sum(parts))
+        split["wall"].append(wall)
+    med = {k: statistics.median(v) for k, v in split.items()}
+    mp = u8.shape[0] * u8.shape[1] / 1e6
+    e2e = statistics.median(e2e_ms)
+    log(f"{name}: end to end {mp / e2e * 1e3:.2f} MP/s ({e2e:.2f} ms), "
+        "warm median of 5; the same decode by span, median of 5: "
+        + ", ".join(f"{k} {med[k]:.2f}" for k in split_spans)
+        + f", rest (postprocess, readback) {med['rest']:.2f}, of "
+        f"{med['wall']:.2f} ms")
+
+
 def phase_decode(probe: dict) -> tuple[dict, dict]:
     """Every fixture through the entry point; returns the EPF kernel's
     report (the main path's numbers with each timed path's beside them)
@@ -844,35 +922,9 @@ def phase_decode(probe: dict) -> tuple[dict, dict]:
             raise AssertionError(f"{name}: {squeeze_launches} squeeze "
                                  f"launches, {SQUEEZES.get(name, 0)} wanted")
 
-        # warm timings, median of 5: the decode end to end, then the same
-        # decode split by the port's spans (host clock; the readback in
-        # to_u8 waits for the card, so device work queued by the device
-        # stage can land in "rest")
-        def decode():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            JxlImage.from_bytes(data).render_frame(0).to_u8()
-            return (time.perf_counter() - t0) * 1e3
-
-        e2e_ms = [decode() for _ in range(5)]
-        split = {k: [] for k in SPLIT_SPANS + ("rest", "wall")}
-        for _ in range(5):
-            with collecting_spans() as spans:
-                wall = decode()
-            totals = span_totals(spans)
-            parts = [totals.get(k, [0.0])[0] for k in SPLIT_SPANS]
-            for k, v in zip(SPLIT_SPANS, parts):
-                split[k].append(v)
-            split["rest"].append(wall - sum(parts))
-            split["wall"].append(wall)
-        med = {k: statistics.median(v) for k, v in split.items()}
-        mp = u8.shape[0] * u8.shape[1] / 1e6
-        e2e = statistics.median(e2e_ms)
-        log(f"{name}: end to end {mp / e2e * 1e3:.2f} MP/s ({e2e:.2f} ms), "
-            "warm median of 5; the same decode by span, median of 5: "
-            + ", ".join(f"{k} {med[k]:.2f}" for k in SPLIT_SPANS)
-            + f", rest (postprocess, readback) {med['rest']:.2f}, of "
-            f"{med['wall']:.2f} ms")
+        log_warm_split(name, u8,
+                       lambda: JxlImage.from_bytes(data).render_frame(0)
+                       .to_u8(), SPLIT_SPANS)
 
         if name in TIMED:
             profile_decode(name, data)
@@ -1237,6 +1289,130 @@ def phase_animation(device) -> dict:
     return paths
 
 
+def tone_map_lums(color, run) -> tuple:
+    """run()'s result and the luminance (host numpy) that each BT.2408
+    tone map of it read (ops/color.py `tone_map_rec2408`, looked up on its
+    module at each call)."""
+    lums = []
+
+    def see(r, g, b, luminances, *rest):
+        lums.append(color._luma(r, g, b, luminances).cpu().numpy())
+
+    with watching(color, "tone_map_rec2408", see):
+        out = run()
+    return out, lums
+
+
+# phase_color's split adds the colour tail's span (api.py `_final_color`)
+COLOR_SPANS = SPLIT_SPANS + ("Transform to requested color encoding",)
+
+
+def phase_color(probe: dict) -> tuple[dict, dict]:
+    """Colour encodings on the card, with Pillow blocked (no leg here needs
+    a CMS): COLOR_FIXTURES, each within 1 LSB of its reference with its
+    K1 and K9 launches counted; flagship_1024 under each requested
+    encoding; the COLOR_TIMED fixtures' launches held against the plain
+    versions and timed; warm medians by span. Returns K1's and K9's rows
+    of the colour paths."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from make_torch_port_fixtures import REQUESTS_U16, requested_encodings
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.headers import image
+    from jxl_oxide_tpu_torch.ops import color
+    from jxl_oxide_tpu_torch.ops.cuda import epf_measure as em
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze_measure as sm
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+
+    k1_paths, k9_paths = {}, {}
+    pil = sys.modules.get("PIL")
+    sys.modules["PIL"] = None  # an import of Pillow raises ImportError
+    try:
+        for name, k1, k9 in COLOR_FIXTURES:
+            data, ref = read_fixture(name)
+            # the counted run: launches of this decode only
+            epf_step_cuda.launches = 0
+            sq.inv_squeeze_cuda.launches = 0
+            ((u8, captured), squeezes), lum = tone_map_lums(
+                color, lambda: sm.capture_launches(
+                    lambda: em.capture_decode(data)))
+            got = (epf_step_cuda.launches, sq.inv_squeeze_cuda.launches)
+            if u8.shape != ref.shape:
+                raise AssertionError(f"{name}: shape {u8.shape}")
+            off = np.abs(u8.astype(np.int32) - ref).max(-1)
+            crossed = np.zeros(off.shape, bool)
+            if lum:
+                # the same decode on the CPU: the side of the step each saw
+                _, lum_cpu = tone_map_lums(
+                    color, lambda: JxlImage.from_bytes(data, device="cpu")
+                    .render_frame(0).to_u8())
+                for a, b in zip(lum, lum_cpu):
+                    crossed |= ((np.abs(a) <= TONE_MAP_STEP)
+                                != (np.abs(b) <= TONE_MAP_STEP))
+            diff = int(off[~crossed].max())
+            log(f"{name}: {u8.shape}, max |u8 - reference| {diff}, K1 "
+                f"launches {got[0]}, K9 launches {got[1]} (wanted {k1}, "
+                f"{k9})" + (f"; tone map: {int(crossed.sum())} pixels' "
+                            "luminance crossed its step against the CPU "
+                            "decode's, of them more than 1 LSB off: "
+                            f"{int((off[crossed] > 1).sum())}" if lum else ""))
+            if diff > 1 or (u8.shape[-1] in (2, 4) and not np.array_equal(
+                    u8[..., -1], ref[..., -1])):
+                raise AssertionError(f"{name}: decode differs from reference")
+            if crossed.sum() > TONE_MAP_CROSSED_MAX * crossed.size:
+                raise AssertionError(f"{name}: {int(crossed.sum())} pixels "
+                                     "crossed the tone map's step")
+            if got != (k1, k9):
+                raise AssertionError(f"{name}: launches {got}, wanted "
+                                     f"{(k1, k9)}")
+            log_warm_split(name, u8,
+                           lambda: JxlImage.from_bytes(data).render_frame(0)
+                           .to_u8(), COLOR_SPANS)
+            if name in COLOR_TIMED:
+                profile_decode(name, data)
+                k1_paths[name] = {"launches": got[0],
+                                  **pass_rows(name, captured)}
+                if squeezes:
+                    k9_paths[name] = {"launches": got[1],
+                                      **squeeze_row(name, squeezes, probe)}
+
+        data, _ = read_fixture(MAIN_PATH)
+        refs = np.load(os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata",
+                                    "flagship_1024_requests.npz"))
+        passes = epf_passes(data)
+        for req, enc in requested_encodings(image).items():
+            def render():
+                img = JxlImage.from_bytes(data)
+                img.request_color_encoding(enc)
+                return img.render_frame(0)
+
+            epf_step_cuda.launches = 0
+            r = render()
+            u8 = r.to_u8()
+            diff = max_lsb(u8, refs[f"u8_{req}"])
+            line = (f"{MAIN_PATH} requested {req}: {u8.shape}, max |u8 - "
+                    f"reference| {diff}, K1 launches {epf_step_cuda.launches}")
+            diff16 = 0
+            if req in REQUESTS_U16:
+                diff16 = max_lsb(r.to_u16(), refs[f"u16_{req}"])
+                line += f", max |u16 - reference| {diff16}"
+            log(line)
+            if (diff > 1 or diff16 > REQUEST_U16_TOL
+                    or epf_step_cuda.launches != passes):
+                raise AssertionError(f"{MAIN_PATH} requested {req}: u8 "
+                                     f"{diff}, u16 {diff16} LSB, "
+                                     f"{epf_step_cuda.launches} K1 launches")
+            log_warm_split(f"{MAIN_PATH} requested {req}", u8,
+                           lambda: render().to_u8(), COLOR_SPANS)
+    finally:
+        if pil is None:
+            del sys.modules["PIL"]
+        else:
+            sys.modules["PIL"] = pil
+    return k1_paths, k9_paths
+
+
 def main() -> int:
     try:
         import torch
@@ -1267,6 +1443,8 @@ def main() -> int:
     report, squeeze_paths = phase_decode(probe)
     report["paths"]["stacked"] = phase_serving(device)
     report["paths"].update(phase_animation(device))
+    color_k1, color_k9 = phase_color(probe)
+    report["paths"].update(color_k1)
     report["max_abs_err"] = max([report["max_abs_err"], worst]
                                 + [p["max_abs_err"]
                                    for p in report["paths"].values()])
@@ -1284,6 +1462,7 @@ def main() -> int:
         "max_abs_err": 0,
         "library_ms": None,
         "pyramid": pyramid,
+        "paths": {MODULAR_PATH: squeeze_paths[MODULAR_PATH], **color_k9},
     }
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [report, squeeze]}))

@@ -20,9 +20,14 @@ the keyframes it composites.
     CUDA kernel), then the render tail (render/render.py).
 Then YCbCr -> RGB for YCbCr frames and the color tail (before blending
 for a blending frame, render/context.py `_convert_color_for_record`);
-the EPF is a CUDA kernel on both. An alpha channel passes through
-unfiltered, and the render tail applies the EXIF orientation (1-8)
-before the interleave.
+the EPF is a CUDA kernel on both. A greyscale frame is one colour plane
+(cloned to three for the filters, render/render.py). The colour tail
+goes to the requested encoding (`request_color_encoding`,
+`request_icc`): an enum or an enum-expressible ICC profile takes the
+torch ops on the decode device (color/convert.py), any other profile the
+CMS leg on the host (color/cms.py, Pillow's Little CMS). An alpha
+channel passes through unfiltered, and the render tail applies the EXIF
+orientation (1-8) before the interleave.
 Streams outside the envelope raise JxlNotSupportedError naming the
 ROADMAP item that will port them; none decodes through a hidden path.
 """
@@ -36,6 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .color.cms import PilCms
 from .color.icc import decode_icc, read_icc
 from .device import resolve_device
 from .headers.frame import BlendMode, Encoding, FrameType
@@ -58,6 +64,7 @@ from .utils.alloc import (
 )
 from .utils.errors import (
     JxlEofError,
+    JxlError,
     JxlNotSupportedError,
     JxlValidationError,
 )
@@ -106,10 +113,11 @@ def _finalize(chans: list, orientation: int, scale: float | None,
 
 @dataclass
 class Render:
-    """A rendered keyframe in the requested color encoding: three [H, W]
-    float32 colour planes and one plane per extra channel, on the decode
-    device, in the coded orientation; every pixel output applies
-    `orientation`."""
+    """A rendered keyframe in the requested color encoding: one (grey) or
+    three [H, W] float32 colour planes and one plane per extra channel, on
+    the decode device, in the coded orientation; every pixel output
+    applies `orientation`, and its last axis holds the colour planes, then
+    the alpha if there is one (grey + alpha: [H, W, 2])."""
 
     planes: list        # colour planes after the colour transform
     extra: list         # extra channel planes, unfiltered
@@ -194,6 +202,10 @@ class JxlImage:
         self._frames_complete = False
         self._header_bs: Bitstream | None = None
         self._keyframe_cache: dict[int, KeyframeRender] = {}
+        self.requested_encoding: ColourEncoding | None = None
+        self.requested_icc: bytes | None = None
+        # the CMS of ICC legs; constructing it needs no Pillow
+        self._cms = PilCms()
 
     # -- construction (copy of jxl_oxide_tpu/api.py:339-464) ---------------
 
@@ -341,6 +353,84 @@ class JxlImage:
     def is_animation(self) -> bool:
         return self.image_header.metadata.animation is not None
 
+    # -- the output colour encoding (jxl_oxide_tpu/api.py:498-566) --------
+
+    def request_color_encoding(self, encoding: ColourEncoding) -> None:
+        # keyframes are cached in the signalled encoding (the colour
+        # transform to the request runs in _postprocess), so no cache
+        # invalidation is needed
+        self.requested_encoding = encoding
+
+    def request_icc(self, icc: bytes) -> None:
+        """Render into the colour space of the given ICC profile
+        (jxl-oxide lib.rs:693-697). Enum-expressible profiles take the
+        enum transform on the decode device; anything else runs the CMS
+        leg. Raises JxlError if the profile cannot be read at all."""
+        # structural validity only: a profile that no enum expresses is
+        # still fine, it takes the CMS leg at render time
+        if len(icc) < 132 or icc[36:40] != b"acsp":
+            raise JxlError("invalid ICC profile")
+        self.requested_icc = icc
+
+    def _embedded_enum(self) -> ColourEncoding | None:
+        """The enum encoding the embedded ICC profile expresses, or None
+        (icc/parse.rs parse_icc)."""
+        if not self.embedded_icc:
+            return None
+        from .color.parse import parse_icc
+
+        try:
+            return parse_icc(self.embedded_icc)
+        except JxlError:
+            return None
+
+    def rendered_icc(self) -> bytes:
+        """ICC profile describing render output (lib.rs:547-555): the
+        requested profile if one was set, else synthesized from the
+        output colour encoding; ICC-described sources keep their
+        embedded profile when no CMS is available to convert them."""
+        if self.requested_icc is not None:
+            return self.requested_icc
+        from .color.synthesize import colour_encoding_to_icc
+
+        meta = self.image_header.metadata
+        if meta.colour_encoding.want_icc and not meta.xyb_encoded:
+            if self._embedded_enum() is not None:
+                return colour_encoding_to_icc(
+                    self.requested_encoding or ColourEncoding())
+            from .color.cms import NullCms, srgb_icc
+
+            if self._cms is None or isinstance(self._cms, NullCms):
+                return self.embedded_icc or b""
+            return srgb_icc()  # the CMS leg's default target
+        return colour_encoding_to_icc(self._output_encoding())
+
+    def _output_encoding(self) -> ColourEncoding:
+        """The requested encoding, else the signalled one (sRGB for
+        XYB)."""
+        if self.requested_encoding is not None:
+            return self.requested_encoding
+        meta = self.image_header.metadata
+        return (meta.colour_encoding if not meta.xyb_encoded
+                else ColourEncoding())
+
+    def rendered_cicp(self) -> tuple[int, int, int, int] | None:
+        """CICP tag of the render output encoding, if enum-described
+        (lib.rs:557-562)."""
+        if self.requested_icc is not None:
+            return None
+        meta = self.image_header.metadata
+        enc = self.requested_encoding
+        if enc is None:
+            if meta.xyb_encoded or meta.colour_encoding.want_icc:
+                enc = ColourEncoding()
+            else:
+                enc = meta.colour_encoding
+        return enc.cicp()
+
+    def set_cms(self, cms) -> None:
+        self._cms = cms
+
     # -- the envelope -------------------------------------------------------
 
     def _check_envelope(self, frame_indices) -> None:
@@ -348,8 +438,8 @@ class JxlImage:
         `frame_indices` (a keyframe's dependency cone: a frame that is not
         the target can carry what the target does not). Image: any EXIF
         orientation, at most one extra channel (an alpha with integer
-        samples at full resolution), an XYB or enum sRGB/linear RGB colour
-        encoding (so three colour channels). Frames: any number, blended,
+        samples at full resolution), any colour encoding (XYB, an RGB or
+        grey enum, an embedded ICC profile). Frames: any number, blended,
         cropped or reference-only, with patches; VarDCT 4:4:4 or
         chroma-subsampled YCbCr (4:2:0, 4:2:2, 4:4:0), or Modular (4:4:4
         YCbCr included) with integer or float samples. Anything else raises
@@ -364,15 +454,6 @@ class JxlImage:
         if any(info.dim_shift for info in meta.ec_info):
             raise _not_supported("alpha at a lower resolution (dim_shift)",
                                  "9b")
-        ce = meta.colour_encoding
-        if not meta.xyb_encoded and (
-            ce.want_icc
-            or ce.colour_space != ColourSpace.RGB
-            or ce.tf.kind not in ("srgb", "linear")
-        ):
-            raise _not_supported(
-                "colour encodings other than XYB or sRGB/linear RGB enums", 15
-            )
         for i in frame_indices:
             header = self._frames[i].header
             flags = header.flags
@@ -400,37 +481,112 @@ class JxlImage:
             raise IndexError(keyframe_idx)
         return kf_indices[keyframe_idx]
 
-    def _color_transform(self):
+    _ct_cache: dict = {}
+
+    @staticmethod
+    def _cached_transform(source, target, meta):
+        """Memoized ColorTransform (jxl_oxide_tpu/api.py:993-1012; the
+        reference caches it on RenderContext, render/lib.rs:57),
+        process-wide: images with the same encoding pair share one."""
         from .color.convert import ColorTransform
 
+        key = (repr(source), repr(target), repr(meta.opsin_inverse_matrix),
+               repr(meta.tone_mapping))
+        tr = JxlImage._ct_cache.get(key)
+        if tr is None:
+            tr = ColorTransform.build(source, target,
+                                      meta.opsin_inverse_matrix,
+                                      meta.tone_mapping)
+            if len(JxlImage._ct_cache) > 64:
+                JxlImage._ct_cache.clear()
+            JxlImage._ct_cache[key] = tr
+        return tr
+
+    def _color_transform(self):
+        """The enum transform of an XYB or enum-encoded image with no
+        requested ICC profile (the stacked path's envelope,
+        serving.py): to the requested encoding, else to the signalled one
+        (sRGB for XYB)."""
         meta = self.image_header.metadata
         if meta.xyb_encoded:
             source = ColourEncoding(colour_space=ColourSpace.XYB)
         else:
             source = meta.colour_encoding
-        # the image's own encoding; XYB renders to sRGB (a requested
-        # target encoding is not ported yet, ROADMAP Queue 1 item 15)
-        target = meta.colour_encoding if not meta.xyb_encoded else (
-            ColourEncoding())
-        return ColorTransform.build(
-            source, target, meta.opsin_inverse_matrix, meta.tone_mapping
-        )
+        return self._cached_transform(source, self._output_encoding(), meta)
+
+    @staticmethod
+    def _run_cms(tr, color: list) -> list:
+        """A CMS transform on the host (color/cms.py works on float32
+        numpy planes): the planes go down, through it and back up to their
+        device."""
+        device = color[0].device
+        with span("Transform to requested color encoding"):
+            out = tr.transform([p.cpu().numpy() for p in color])
+            return [torch.from_numpy(np.ascontiguousarray(p, np.float32))
+                    .to(device) for p in out]
+
+    @staticmethod
+    def _run_transform(tr, color: list) -> list:
+        if tr.is_noop:
+            return color
+        with span("Transform to requested color encoding"):
+            return list(tr.run(color))
 
     def _final_color(self, color: list, frame_header, ct_done: bool) -> list:
-        """postprocess_keyframe's colour (render/lib.rs:884-994): YCbCr ->
-        RGB, then the transform to the output encoding, unless the canvas
-        was converted before blending (ct_done, lib.rs:934)."""
+        """postprocess_keyframe's colour (render/lib.rs:884-994; the colour
+        branches of jxl_oxide_tpu/api.py _postprocess): YCbCr -> RGB, then
+        the transform to the output encoding, unless the canvas was
+        converted before blending (ct_done, lib.rs:934).
+          - An embedded ICC profile that an enum expresses takes the enum
+            transform to the requested encoding (sRGB by default); any
+            other profile, or one with a requested ICC profile, the CMS
+            leg on the host, and NullCms keeps the samples as they are.
+          - An XYB or enum source takes the enum transform to the
+            requested encoding, or to the profile a requested ICC
+            expresses; a profile no enum expresses renders to sRGB, then
+            takes the CMS leg from sRGB to it."""
         if ct_done:
             return list(color)
+        color = list(color)
         if frame_header.do_ycbcr:
             from .ops.color import ycbcr_to_rgb
 
-            color = ycbcr_to_rgb(color[0], color[1], color[2])
-        tr = self._color_transform()
-        if not tr.is_noop:
-            with span("Transform to requested color encoding"):
-                color = tr.run(list(color))
-        return list(color)
+            color = list(ycbcr_to_rgb(color[0], color[1], color[2]))
+        meta = self.image_header.metadata
+        if meta.colour_encoding.want_icc and not meta.xyb_encoded:
+            enum_src = (self._embedded_enum() if self.requested_icc is None
+                        else None)
+            if enum_src is not None:
+                return self._run_transform(self._cached_transform(
+                    enum_src, self.requested_encoding or ColourEncoding(),
+                    meta), color)
+            if self.requested_icc is not None or self._cms is not None:
+                try:
+                    return self._run_cms(self._cms.prepare_transform(
+                        self.embedded_icc, self.requested_icc), color)
+                except JxlNotSupportedError:
+                    pass  # NullCms: keep the ICC-described samples
+            return color
+        if self.requested_icc is None:
+            return self._run_transform(self._color_transform(), color)
+        from .color.parse import parse_icc
+
+        source = (ColourEncoding(colour_space=ColourSpace.XYB)
+                  if meta.xyb_encoded else meta.colour_encoding)
+        icc_leg = None
+        try:
+            target = parse_icc(self.requested_icc)
+        except JxlError:
+            target = ColourEncoding()  # the sRGB connection space
+            icc_leg = self.requested_icc
+        color = self._run_transform(
+            self._cached_transform(source, target, meta), color)
+        if icc_leg is not None and self._cms is not None:
+            from .color.cms import srgb_icc
+
+            color = self._run_cms(
+                self._cms.prepare_transform(srgb_icc(), icc_leg), color)
+        return color
 
     # -- keyframes: dependency cones, compositing, the cache ----------------
     #

@@ -4,8 +4,8 @@ Behavioral parity: jxl-color/src/convert.rs (ColorTransform::new op-list
 construction) and ciexyz.rs (primaries/white-point matrices, Bradford
 adaptation). The builder is a copy of jxl_oxide_tpu/color/convert.py
 (host-side, tiny 3x3 float math in float64 numpy); the ops execute in
-torch on the planes' device (ops/color.py), for the op kinds of the
-port's envelope.
+torch on the planes' device (ops/color.py), every op kind of the JAX
+package's `_apply_ops`.
 """
 
 from __future__ import annotations
@@ -119,7 +119,8 @@ class ColorTransform:
     """Op list from a source encoding to a target enum encoding.
 
     Supported sources: XYB, RGB enum, Grey enum. ICC endpoints need an
-    external CMS, which the port does not have yet.
+    external CMS (color/cms.py) and are handled by the caller (api.py
+    `_final_color`).
     """
 
     def __init__(self, ops: list[_Op], begin_channels: int):
@@ -343,18 +344,61 @@ class ColorTransform:
             elif op.kind == "matrix":
                 a, b, c = planes[:3]
                 planes[:3] = C.apply_matrix3(a, b, c, d["mat"])
+            elif op.kind == "luma_to_xyz":
+                # one plane becomes three (the planes are colour only:
+                # an alpha rides in Render.extra and is appended last)
+                wx, wy = d["illuminant"]
+                luma = planes[0]
+                luma_div_y = luma / float(np.float32(wy))
+                planes = [
+                    float(np.float32(wx)) * luma_div_y,
+                    luma,
+                    float(np.float32(1.0 - wx - wy)) * luma_div_y,
+                ]
+            elif op.kind == "xyz_to_luma":
+                planes = [planes[1]]
             elif op.kind == "clip":
                 planes = [torch.clamp(p, 0.0, 1.0) for p in planes]
+            elif op.kind == "gamut_map":
+                r, g, b = planes[:3]
+                planes[:3] = C.gamut_map(
+                    r, g, b, d["luminances"], d["saturation_factor"]
+                )
+            elif op.kind == "tone_map":
+                r, g, b = planes[:3]
+                planes[:3] = C.tone_map_rec2408(
+                    r, g, b, d["luminances"], d["intensity_target"],
+                    d["min_nits"], d["target_display_luminance"],
+                    d["detect_peak"],
+                )
+            elif op.kind == "hlg_inverse_oo":
+                r, g, b = planes[:3]
+                planes[:3] = C.hlg_inverse_oo(
+                    r, g, b, d["luminances"], d["intensity_target"]
+                )
             elif op.kind in ("tf_fwd", "tf_inv"):
                 forward = op.kind == "tf_fwd"
-                planes = [
-                    self._apply_tf(p, d, forward=forward) for p in planes
-                ]
+                if d["tf"].kind == "hlg" and len(planes) >= 3:
+                    # HLG couples channels through the OOTF (convert.rs
+                    # apply_(inverse_)transfer_function, Hlg arm); one
+                    # grey plane takes the per-plane curve below
+                    r, g, b = planes[:3]
+                    if forward:
+                        r, g, b = C.hlg_inverse_oo(
+                            r, g, b, d["luminances"], d["intensity_target"]
+                        )
+                        planes[:3] = [C.linear_to_hlg(p) for p in (r, g, b)]
+                    else:
+                        r, g, b = (C.hlg_to_linear(p) for p in (r, g, b))
+                        planes[:3] = C.hlg_oo(
+                            r, g, b, d["luminances"], d["intensity_target"]
+                        )
+                else:
+                    planes = [
+                        self._apply_tf(p, d, forward=forward) for p in planes
+                    ]
             else:
-                raise JxlNotSupportedError(
-                    f"color op {op.kind!r} is not ported yet "
-                    "(ROADMAP Queue 1 item 5)"
-                )
+                raise AssertionError(op.kind)
         return planes
 
     @staticmethod
@@ -362,12 +406,25 @@ class ColorTransform:
         from ..ops import color as C
 
         tf: TransferFunction = d["tf"]
+        it = d["intensity_target"]
         kind = tf.kind
         if kind == "srgb":
             return C.linear_to_srgb(p) if forward else C.srgb_to_linear(p)
-        if kind == "linear":
+        if kind == "bt709":
+            return C.linear_to_bt709(p) if forward else C.bt709_to_linear(p)
+        if kind == "linear" or kind == "unknown":
             return p
-        raise JxlNotSupportedError(
-            f"transfer function {kind} is not ported yet "
-            "(ROADMAP Queue 1 item 5)"
-        )
+        if kind == "gamma":
+            g = tf.gamma
+            if forward:
+                return C.apply_gamma(
+                    p, g / 1e7 if tf.gamma_inverted else 1e7 / g)
+            return C.apply_gamma(p, 1e7 / g if tf.gamma_inverted else g / 1e7)
+        if kind == "pq":
+            return C.linear_to_pq(p, it) if forward else C.pq_to_linear(p, it)
+        if kind == "hlg":
+            return C.linear_to_hlg(p) if forward else C.hlg_to_linear(p)
+        if kind == "dci":
+            # DCI: pure gamma 2.6
+            return C.apply_gamma(p, 1.0 / 2.6 if forward else 2.6)
+        raise JxlNotSupportedError(f"transfer function {kind}")

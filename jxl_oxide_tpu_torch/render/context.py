@@ -198,12 +198,14 @@ class RenderContext:
         from ..headers.image import ColourEncoding, ColourSpace
 
         if header.do_ycbcr:
-            # xyb_encoded is false here (do_ycbcr implies a non-XYB image);
-            # the envelope has no greyscale
+            # xyb_encoded is false here (do_ycbcr implies a non-XYB image)
             from ..ops.color import ycbcr_to_rgb
 
-            fr.color = list(ycbcr_to_rgb(fr.color[0], fr.color[1],
-                                         fr.color[2]))
+            rgb = list(ycbcr_to_rgb(fr.color[0], fr.color[1], fr.color[2]))
+            # a grey image keeps the red plane (util.rs:311-375, as the
+            # JAX package's render/context.py does)
+            fr.color = (rgb[:1] if meta.colour_encoding.colour_space
+                        == ColourSpace.GREY else rgb)
             fr.ct_done = True
         elif meta.xyb_encoded:
             enc = meta.colour_encoding

@@ -8,7 +8,10 @@ staged path's planes take every step here.
 
 Modular: the original channels of the frame's ModularImage -> floats
 (integer samples, lossless XYB, or float samples on the host) ->
-gaborish -> EPF at the frame's constant sigma.
+gaborish -> EPF at the frame's constant sigma. A greyscale frame has one
+colour plane: the filters run on it cloned to three planes, as the JAX
+package runs them, and plane 0 is kept (the EPF's distance sums the
+three channels in order, so the clone keeps it bit for bit).
 
 Extra channels (the port's envelope: one integer alpha) convert with
 their own bit depth and are never filtered (`extra_channel_planes`), on
@@ -105,12 +108,13 @@ def _parse_float_samples(arr: np.ndarray, bit_depth) -> np.ndarray:
 
 
 def _upload(chans: list, device) -> torch.Tensor:
-    """The three colour channels as one [3, h, w] tensor on `device`:
-    tensors stay where they are; host arrays go up in one copy in their
-    own integer type (i16 from the narrow lane stays i16)."""
+    """The colour channels `chans` (one or three) as one [c, h, w] tensor
+    on `device`: tensors stay where they are; host arrays go up in one
+    copy in their own integer type (i16 from the narrow lane stays
+    i16)."""
     if isinstance(chans[0], torch.Tensor):
-        return torch.stack(chans[:3])
-    return torch.from_numpy(np.stack(chans[:3])).to(device)
+        return torch.stack(chans)
+    return torch.from_numpy(np.stack(chans)).to(device)
 
 
 def integer_samples_to_float(planes: torch.Tensor, bits: int) -> torch.Tensor:
@@ -143,33 +147,40 @@ def extra_channel_planes(chans: list, ec_info: list, device) -> list:
 def render_modular_tail(frame, chans: list, device) -> tuple[list, list]:
     """(color, extra) on `device` from the original channels of a Modular
     frame (numpy arrays after the host tail, int32 tensors on the device
-    after the device tail): three [h, w] float32 colour planes, filtered as
-    the frame says, and one plane per extra channel, unfiltered."""
+    after the device tail): the frame's colour planes (three, or one for
+    greyscale) as [h, w] float32, filtered as the frame says, and one plane
+    per extra channel, unfiltered."""
     header = frame.header
     meta = frame.image_header.metadata
     bit_depth = meta.bit_depth
     h, w = header.sample_height(), header.sample_width()
+    # colour is the first 1 or 3 channels; an alpha follows
+    color_chans = chans[:header.encoded_color_channels]
     if meta.xyb_encoded:
         # convert_modular_xyb (image.rs:148-188): stream order [y, x, b],
         # b += y, output [x*m_x, y*m_y, b*m_b] with m/128 scaling, in
         # float64 and then rounded to float32, as the JAX package does
-        y, x, b = _upload(chans, device).to(torch.float64).unbind(0)
+        y, x, b = _upload(color_chans, device).to(torch.float64).unbind(0)
         b = b + y
         m_x, m_y, m_b = (m / 128.0 for m in frame.lf_global.lf_dequant)
         color = [(x * m_x).to(torch.float32), (y * m_y).to(torch.float32),
                  (b * m_b).to(torch.float32)]
     elif bit_depth.is_float:
         color = list(torch.from_numpy(np.stack([
-            _parse_float_samples(np.asarray(c), bit_depth) for c in chans[:3]
-        ])).to(device).unbind(0))
+            _parse_float_samples(np.asarray(c), bit_depth)
+            for c in color_chans])).to(device).unbind(0))
     else:
         color = list(integer_samples_to_float(
-            _upload(chans, device), bit_depth.bits_per_sample).unbind(0))
+            _upload(color_chans, device), bit_depth.bits_per_sample).unbind(0))
     extra = extra_channel_planes(
         chans[frame.lf_global.gmodular.extra_channel_from:], meta.ec_info,
         color[0].device)
 
     rf = header.restoration_filter
+    gray_cloned = (rf.gab.enabled or rf.epf.enabled) and len(color) < 3
+    if gray_cloned:
+        # the JAX package's render_frame (render/render.py:205-227)
+        color = [color[0]] * 3
     if rf.gab.enabled:
         color = apply_gabor(color, rf.gab.weights)
     if rf.epf.enabled:
@@ -177,6 +188,8 @@ def render_modular_tail(frame, chans: list, device) -> tuple[list, list]:
                            dtype=torch.float32, device=color[0].device)
         out = apply_epf(color, sigma, rf.epf)
         color = [out[0], out[1], out[2]]
+    if gray_cloned:
+        color = list(color[:1])
     return color, extra
 
 

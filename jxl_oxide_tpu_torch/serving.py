@@ -103,8 +103,11 @@ def _host_stage_fast(img: JxlImage, frame: int):
     for (jxl_oxide_tpu/serving.py:127-129: a multi-frame stream
     composites, and goes per image), one VarDCT frame inside the port's
     envelope (api.py `_check_envelope`: 4:4:4 or chroma-subsampled, at
-    most one full-resolution integer alpha, no upsampling or LF frame,
-    XYB or enum RGB colour) that covers the canvas as it is (no crop
+    most one full-resolution integer alpha, no upsampling or LF frame)
+    in XYB or an enum RGB encoding with no ICC leg (no embedded profile,
+    no requested one: jxl_oxide_tpu/serving.py:127-142) and no tone map
+    that detects the peak (its peak would be the stack's, not the
+    image's), that covers the canvas as it is (no crop
     offset, the image's size, no patches; the stacked program returns
     frame-sized planes and composites nothing, jxl_oxide_tpu/serving.py
     :146-161) and orientation 1: after the fused program the image
@@ -114,10 +117,17 @@ def _host_stage_fast(img: JxlImage, frame: int):
     the port's envelope raise JxlNotSupportedError here (the caller
     routes them to the per-image path, which raises it again)."""
     from .headers.frame import Encoding
+    from .headers.image import ColourSpace
 
     if frame != 0 or img.num_keyframes != 1 or img.num_frames != 1:
         return None
     img._check_envelope([0])
+    enc = img.image_header.metadata.colour_encoding
+    if (img.requested_icc is not None or enc.want_icc
+            or enc.colour_space == ColourSpace.GREY
+            or any(op.kind == "tone_map" and op.data["detect_peak"]
+                   for op in img._color_transform().ops)):
+        return None
     fr = img._frames[0]
     header = fr.header
     size = img.image_header.size
@@ -136,10 +146,12 @@ def _host_stage_fast(img: JxlImage, frame: int):
 
 def _tail_key(img: JxlImage, fr) -> tuple:
     """What one stack's colour tail depends on beyond the program key:
-    the colour metadata (program keys do not cover it) and YCbCr."""
+    the colour metadata (program keys do not cover it), YCbCr and the
+    requested encoding."""
     meta = img.image_header.metadata
     return (meta.xyb_encoded, fr.header.do_ycbcr, repr(meta.colour_encoding),
-            repr(meta.opsin_inverse_matrix), repr(meta.tone_mapping))
+            repr(meta.opsin_inverse_matrix), repr(meta.tone_mapping),
+            repr(img.requested_encoding))
 
 
 def _dtype_key(inputs) -> tuple:
@@ -180,10 +192,7 @@ def _decode_stack(chunk, key, output: str) -> list:
     if state0.frame.header.do_ycbcr:
         # stream channel order is [Cb, Y, Cr]
         planes = list(ycbcr_to_rgb(planes[0], planes[1], planes[2]))
-    tr = img0._color_transform()
-    if not tr.is_noop:
-        with span("Transform to requested color encoding"):
-            planes = list(tr.run(planes))
+    planes = img0._run_transform(img0._color_transform(), planes)
     if alpha0 is not None:
         bits = img0.image_header.metadata.ec_info[0].bit_depth.bits_per_sample
         planes.append(integer_samples_to_float(placed[-1], bits))

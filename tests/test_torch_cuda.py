@@ -422,3 +422,110 @@ def test_frame_workers_run_on_the_card(cuda, monkeypatch):
     with open(f"{tp.TESTDATA}/anim_blend_epf_512.jxl", "rb") as f:
         JxlImage.from_bytes(f.read()).render_frame(2)
     assert seen == [(False, "cuda", True)] * 3
+
+
+@pytest.mark.parametrize("step,mult", [(0, 1.65), (1, 1.0), (2, 2.35)])
+@pytest.mark.parametrize("hw", [(150, 40), (150, 42), (1024, 2048)])
+def test_epf_kernel_on_cloned_grey_planes(cuda, step, mult, hw):
+    """K1 on a grey plane cloned to [3, H, W] (render/render.py filters a
+    grey frame so): within 2e-5 of the plain version, and its three output
+    planes equal, so keeping plane 0 keeps the JAX package's result."""
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.filters import epf_step
+
+    p, s = tp.epf_inputs((1,) + hw, seed=step)
+    planes = torch.from_numpy(p).to(cuda).expand(3, *hw).contiguous()
+    sigma = torch.from_numpy(s).to(cuda)
+    got = epf_step_cuda(planes, sigma, step, CS, mult, BSM)
+    want = epf_step(planes, sigma, step, CS, mult, BSM)
+    assert float((got - want).abs().max()) <= 2e-5
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+
+
+def test_grey_squeeze_device_tail_matches_host(cuda):
+    """grey_squeeze_2048x1024's inverse transforms on the card (one K9
+    launch) and on the host (C++ rows): bit for bit."""
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze import inv_squeeze_cuda
+    from jxl_oxide_tpu_torch.utils.options import use_decode_device
+
+    data = tp.fixture("grey_squeeze_2048x1024")[0]
+    host = JxlImage.from_bytes(data, device="cpu")._frames[0]
+    want = host.decode_modular_sections().finish()
+    dev = JxlImage.from_bytes(data)._frames[0]
+    with use_decode_device(cuda):
+        modular = dev.decode_modular_sections()
+        assert modular.device_tail_selected()
+        before = inv_squeeze_cuda.launches
+        got = modular.finish(to_device=True)
+    assert inv_squeeze_cuda.launches - before == 1
+    assert len(got) == len(want) == 1
+    assert torch.equal(got[0].cpu(), torch.from_numpy(want[0]))
+
+
+@pytest.mark.parametrize("name,exact,k1,k9", tp.COLOR_FIXTURES)
+def test_color_fixture_decodes_on_cuda(cuda, monkeypatch, name, exact, k1,
+                                       k9):
+    """The colour fixtures on the card: within 1 LSB of the reference
+    (alpha exactly), with their K1 and K9 launches. The reference's tone
+    map steps at a luminance of |y| = 1e-7; a pixel whose luminance lands
+    on the other side of the step on the card than on the CPU (K1's
+    last-ulp differences from its plain version) is left out, and there
+    are few (chip_smoke.py TONE_MAP_STEP; ROADMAP Queue 3)."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops import color
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze import inv_squeeze_cuda
+
+    lums = {"cuda": [], "cpu": []}
+    real = color.tone_map_rec2408
+    data, ref = tp.fixture(name)
+
+    def decode(device):
+        def tone_map(r, g, b, luminances, *rest):
+            y = color._luma(r, g, b, luminances)
+            lums[device].append(y.cpu().numpy())
+            return real(r, g, b, luminances, *rest)
+
+        monkeypatch.setattr(color, "tone_map_rec2408", tone_map)
+        return JxlImage.from_bytes(data, device=device).render_frame(0)\
+            .to_u8()
+
+    before = epf_step_cuda.launches, inv_squeeze_cuda.launches
+    u8 = decode("cuda")
+    assert epf_step_cuda.launches - before[0] == k1
+    assert inv_squeeze_cuda.launches - before[1] == k9
+    assert u8.shape == ref.shape
+    crossed = np.zeros(u8.shape[:2], bool)
+    if lums["cuda"]:
+        decode("cpu")
+        for a, b in zip(lums["cuda"], lums["cpu"]):
+            crossed |= (np.abs(a) <= 1e-7) != (np.abs(b) <= 1e-7)
+    assert crossed.sum() <= crossed.size * 1e-4
+    off = np.abs(u8.astype(np.int32) - ref).max(-1)
+    assert off[~crossed].max() <= 1
+    if u8.shape[-1] in (2, 4):
+        assert np.array_equal(u8[..., -1], ref[..., -1])
+
+
+def test_flagship_requests_on_cuda(cuda):
+    """flagship_1024 under each requested encoding on the card: u8 within
+    1 LSB of the reference, u16 of PQ and HLG within REQUEST_U16_TOL."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.headers import image
+    from make_torch_port_fixtures import requested_encodings
+
+    data = tp.fixture("flagship_1024")[0]
+    refs = np.load(f"{tp.TESTDATA}/flagship_1024_requests.npz")
+    for name, enc in requested_encodings(image).items():
+        img = JxlImage.from_bytes(data)
+        img.request_color_encoding(enc)
+        r = img.render_frame(0)
+        assert tp.max_lsb(r.to_u8(), refs[f"u8_{name}"]) <= 1, name
+        if f"u16_{name}" in refs.files:
+            assert tp.max_lsb(r.to_u16(), refs[f"u16_{name}"]) <= \
+                tp.REQUEST_U16_TOL, name

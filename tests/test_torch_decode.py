@@ -48,11 +48,15 @@ def test_render_outputs_agree_with_jax():
     assert tp.max_lsb(u16, ref.to_u16()) <= 1
 
 
-def _grey_modular():
+def _cmyk_modular():
+    """CMYK (a Black extra channel): item 17. Greyscale, once item 15
+    here, decodes (tests/test_torch_color_live.py)."""
     from encoder import encode_jxl_modular
 
     rng = np.random.default_rng(0)
-    return encode_jxl_modular([rng.integers(0, 256, (32, 32))], bit_depth=8)
+    return encode_jxl_modular([rng.integers(0, 256, (32, 32))
+                               for _ in range(4)], bit_depth=8,
+                              extra_channel_specs=[{"ty": 4}])
 
 
 def _lf_frame():
@@ -81,7 +85,7 @@ def _alpha_dim_shift():
 
 
 @pytest.mark.parametrize("make,item", [
-    (_grey_modular, "item 15"),
+    (_cmyk_modular, "item 17"),
     (_lf_frame, "item 9"),
     (_alpha, "item 17"),
     (_alpha_dim_shift, "item 9"),

@@ -308,9 +308,13 @@ def test_gate_follows_the_decode_device():
     assert opts.DEVICE_TAIL_MIN_SAMPLES == 1 << 20
 
 
-def _grey():
+def _cmyk():
+    """CMYK: three colour channels and a Black extra channel (greyscale
+    decodes since item 15, tests/test_torch_color_live.py)."""
     rng = np.random.default_rng(21)
-    return encode_jxl_modular([rng.integers(0, 256, (32, 32))], bit_depth=8)
+    return encode_jxl_modular([rng.integers(0, 256, (32, 32))
+                               for _ in range(4)], bit_depth=8,
+                              extra_channel_specs=[{"ty": 4}])
 
 
 def _alpha():
@@ -322,7 +326,7 @@ def _alpha():
         extra_alpha=True, spot_colour=(1.0, 0.5, 0.0, 1.0))
 
 
-@pytest.mark.parametrize("make,item", [(_grey, "item 15"),
+@pytest.mark.parametrize("make,item", [(_cmyk, "item 17"),
                                        (_alpha, "item 17")])
 def test_outside_the_modular_envelope_raises(make, item):
     img = JxlImage.from_bytes(make(), device="cpu")

@@ -24,6 +24,21 @@ FUSED_FIXTURES = FIXTURES[:3]
 # lossless Modular: modular_1024 takes the device tail on CUDA, with
 # gaborish and 2 EPF passes; modular_xyb_512 the host tail
 MODULAR_FIXTURES = ("modular_1024", "modular_xyb_512")
+# the colour fixtures: (name, exact on the CPU, K1 launches, K9 launches on
+# the card): grey with its squeeze on the device tail and K1 on its plane
+# cloned to three; grey + alpha and bench.py's modular_wp on the host tail;
+# XYB mastered at 4000 nits, tone-mapped (at 256^2 relative to its peak);
+# an embedded Display P3 profile
+COLOR_FIXTURES = (("grey_squeeze_2048x1024", False, 2, 1),
+                  ("grey_alpha_512", True, 0, 0),
+                  ("modular_wp_256", True, 0, 0),
+                  ("xyb_hdr_1024", False, 2, 0),
+                  ("xyb_hdr_peak_256", False, 2, 0),
+                  ("icc_p3_512", False, 0, 0))
+# flagship_1024 under each requested encoding (flagship_1024_requests.npz):
+# the u16 bound of the PQ and HLG renders, in LSB of 65535 (measured on the
+# CPU: 1; chip_smoke.py holds the card's renders to it)
+REQUEST_U16_TOL = 1
 # jpeg_upsampling of the chroma layouts 4:2:0, 4:2:2 and 4:4:0
 CHROMA = {"420": (0, 1, 0), "422": (0, 2, 0), "440": (0, 3, 0)}
 for _p in (os.path.join(REPO, "tools"), REPO):
@@ -107,6 +122,21 @@ STREAMS = {
         gabor=True, epf_iters=3),
     "two_passes": lambda: vardct_stream(64, 64, 5, num_passes=2),
 }
+
+
+def colour_encoding(image, space: str, prim: str = "srgb", tf: str = "srgb",
+                    intent: str = "RELATIVE", white: str = "d65"):
+    """A ColourEncoding of `image`, a headers.image module (the JAX
+    package's or the port's: their classes do not compare equal across
+    packages), by names; tf "gamma" is gamma 2.2 (a coded exponent of
+    1/2.2, in units of 1e-7)."""
+    TF = image.TransferFunction
+    tfv = (TF("gamma", gamma=4545455, gamma_inverted=True) if tf == "gamma"
+           else TF(tf))
+    return image.ColourEncoding(
+        colour_space=getattr(image.ColourSpace, space),
+        white_point=image.WhitePoint(white), primaries=image.Primaries(prim),
+        tf=tfv, rendering_intent=getattr(image.RenderingIntent, intent))
 
 
 def epf_inputs(shape, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:

@@ -11,6 +11,11 @@ testdata/:
                phase of chip_smoke.py holds those against the port's own
                per-image decode, and animation_4f_blend against its
                seeded input frames)
+  flagship_1024_requests.npz
+               flagship_1024 rendered by jxl_oxide_tpu under each of
+               REQUESTS (request_color_encoding): "u8_<name>" for each,
+               "u16_<name>" for the HDR ones (REQUESTS_U16); written with
+               the name "flagship_1024_requests"
 
 The port's chip smoke test and its CPU tests decode the .jxl files with
 jxl_oxide_tpu_torch and compare with the .npz references; a machine
@@ -229,6 +234,127 @@ STREAM_ONLY = ("flagship_alpha_1024_s1", "flagship_alpha_1024_s2",
                "ycbcr422_256_s1", "animation_4f_blend")
 
 
+def grey_squeeze():
+    """One 8-bit grey plane, squeezed, gaborish + 2 EPF passes. 2048 wide:
+    the default squeeze of one channel halves its width, and a squeezed
+    half of 1024 x 1024 samples is what the Modular device tail's gate
+    asks for (2^20; models/modular.py `_device_tail_worthwhile`), so the
+    squeeze runs on the card. At 1024 x 1024 both halves hold 2^19 and
+    the host tail runs. LZ77 runs (lz77_rle) code the runs of zero
+    residuals in the 8x8 blocks: 0.21 MB against 2.1 MB without them, the
+    same image."""
+    from encoder import encode_jxl_modular
+
+    plane = np.concatenate([smooth_u8(1024, 1024, 30)[0],
+                            smooth_u8(1024, 1024, 34)[0]], axis=1)
+    return encode_jxl_modular([plane], bit_depth=8, grayscale=True,
+                              squeeze=True, gabor=True, epf_iters=2,
+                              lz77_rle=True)
+
+
+def modular_wp_256():
+    """bench.py's modular_wp case (bench.py:180-205), unchanged: a grey
+    256^2 plane coded with the weighted predictor through a custom MA
+    tree."""
+    from encoder import encode_jxl_modular
+    from test_roundtrip import _RefWp
+
+    rng = np.random.default_rng(13)
+    wp_h = wp_w = 256
+    a = rng.integers(0, 32, (wp_h, wp_w)).astype(np.int64) * 8
+    wp_state = _RefWp(wp_w)
+    toks = []
+    for y in range(wp_h):
+        for x in range(wp_w):
+            W = int(a[y, x - 1]) if x > 0 else (int(a[y - 1, 0]) if y > 0
+                                                else 0)
+            N = int(a[y - 1, x]) if y > 0 else W
+            NW = int(a[y - 1, x - 1]) if (x > 0 and y > 0) else W
+            NE = int(a[y - 1, x + 1]) if (y > 0 and x + 1 < wp_w) else N
+            NN = int(a[y - 2, x]) if y >= 2 else N
+            pred = (wp_state.predict(N, NW, NE, W, NN) + 3) >> 3
+            v = int(a[y, x]) - pred
+            toks.append((v << 1) if v >= 0 else (-(v << 1) - 1))
+            wp_state.record(int(a[y, x]))
+    return encode_jxl_modular([a], bit_depth=8, grayscale=True,
+                              custom_tree=([0, 6, 0, 0, 0], 1,
+                                           lambda _c: list(toks)))
+
+
+def xyb_hdr(size, relative):
+    """Lossless XYB Modular mastered at 4000 nits (tone_mapping), gaborish
+    + 2 EPF passes: rendered to sRGB, the colour tail tone-maps it
+    (BT.2408), with relative_to_max_display through the peak-detecting
+    leg. LZ77 runs keep the 1024^2 stream at 0.17 MB (3.16 MB without)."""
+    from encoder import encode_jxl_modular
+
+    return encode_jxl_modular(
+        smooth_u8(size, size, 31), bit_depth=8, xyb=True,
+        tone_mapping=(4000.0, 0.0, relative, 0.0), gabor=True, epf_iters=2,
+        lz77_rle=True)
+
+
+def icc_p3_512():
+    """RGB Modular with an embedded ICC profile that an enum expresses:
+    Display P3, perceptual intent, synthesized by jxl_oxide_tpu."""
+    from encoder import encode_jxl_modular
+
+    from jxl_oxide_tpu.color.synthesize import colour_encoding_to_icc
+    from jxl_oxide_tpu.headers.image import (
+        ColourEncoding,
+        Primaries,
+        RenderingIntent,
+    )
+
+    icc = colour_encoding_to_icc(ColourEncoding(
+        primaries=Primaries.P3, rendering_intent=RenderingIntent.PERCEPTUAL))
+    return encode_jxl_modular(smooth_u8(512, 512, 35), bit_depth=8,
+                              embed_icc=icc, lz77_rle=True)
+
+
+def requested_encodings(image) -> dict:
+    """The encodings flagship_1024 is rendered to, name -> ColourEncoding,
+    built from `image`, a headers.image module (the JAX package's, or the
+    port's copy: their classes do not compare equal across packages)."""
+    ce, prim, tf = image.ColourEncoding, image.Primaries, image.TransferFunction
+    return {
+        "pq": ce(primaries=prim.BT2100, tf=tf.PQ),
+        "hlg": ce(primaries=prim.BT2100, tf=tf.HLG),
+        "bt709": ce(tf=tf("bt709")),
+        # gamma 2.2: the coded exponent is 1/2.2, in units of 1e-7
+        "gamma22": ce(tf=tf("gamma", gamma=4545455, gamma_inverted=True)),
+        "p3_perceptual": ce(primaries=prim.P3,
+                            rendering_intent=image.RenderingIntent.PERCEPTUAL),
+        "grey": ce(colour_space=image.ColourSpace.GREY),
+    }
+
+
+REQUESTS = ("pq", "hlg", "bt709", "gamma22", "p3_perceptual", "grey")
+# the requests whose u16 render is committed too
+REQUESTS_U16 = ("pq", "hlg")
+
+
+def write_requests() -> None:
+    """flagship_1024_requests.npz from the committed flagship_1024.jxl."""
+    from jxl_oxide_tpu import JxlImage
+    from jxl_oxide_tpu.headers import image
+
+    with open(os.path.join(OUT_DIR, "flagship_1024.jxl"), "rb") as f:
+        data = f.read()
+    out = {}
+    for name, enc in requested_encodings(image).items():
+        img = JxlImage.from_bytes(data)
+        img.request_color_encoding(enc)
+        r = img.render_frame(0)
+        out[f"u8_{name}"] = r.to_u8()
+        if name in REQUESTS_U16:
+            out[f"u16_{name}"] = r.to_u16()
+    np.savez_compressed(
+        os.path.join(OUT_DIR, "flagship_1024_requests.npz"), **out)
+    print("flagship_1024_requests: "
+          + ", ".join(f"{k} {v.shape}" for k, v in out.items()))
+
+
 def fixtures() -> dict:
     """name -> a function that makes the stream."""
     from encoder import encode_jxl_modular
@@ -295,6 +421,20 @@ def fixtures() -> dict:
         "crop_epf_77x45": lambda: encode_jxl_modular(
             smooth_u8(45, 77, 44), bit_depth=8, image_size=(64, 96),
             crop=(-5, 9, 77, 45), gabor=True, epf_iters=2),
+        # colour encodings: greyscale with the squeeze on the device tail
+        # and K1 on its plane cloned to three
+        "grey_squeeze_2048x1024": grey_squeeze,
+        # the modular_alpha_512 recipe with one colour channel (and LZ77
+        # runs, as the colour fixtures above): host tail
+        "grey_alpha_512": lambda: encode_jxl_modular(
+            [smooth_u8(512, 512, 32)[0], smooth_alpha(512, 512, 33)],
+            bit_depth=8, grayscale=True, extra_alpha=True, lz77_rle=True),
+        "modular_wp_256": modular_wp_256,
+        # XYB mastered at 4000 nits: tone-mapped to sRGB, K1 on 1024^2
+        "xyb_hdr_1024": lambda: xyb_hdr(1024, False),
+        # the same at 256^2, relative to the display's peak (detect_peak)
+        "xyb_hdr_peak_256": lambda: xyb_hdr(256, True),
+        "icc_p3_512": icc_p3_512,
     }
 
 
@@ -315,7 +455,10 @@ def main(names) -> None:
     carry the time they were written, so rewrite only what changed."""
     os.makedirs(OUT_DIR, exist_ok=True)
     makers = fixtures()
-    for name in names or makers:
+    for name in names or [*makers, "flagship_1024_requests"]:
+        if name == "flagship_1024_requests":
+            write_requests()
+            continue
         data = makers[name]()
         with open(os.path.join(OUT_DIR, f"{name}.jxl"), "wb") as f:
             f.write(data)
