@@ -7,9 +7,10 @@ NVIDIA GPU.
 Phases, each fatal (non-zero exit, no "ok" line):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the native host library (g++), the EPF kernel, the squeeze
-     kernel and the squeeze's chain probe (nvcc) from the checkout, in
-     parallel, timed; ptxas's registers and spills of each EPF step and
-     each squeeze kernel (a spill is fatal) and the EPF launch geometry;
+     kernel, the squeeze's chain probe and the noise field kernel (nvcc)
+     from the checkout, in parallel, timed; ptxas's registers and spills
+     of each EPF step, each squeeze kernel and the noise kernel (a spill
+     is fatal) and the EPF launch geometry;
   2b. the squeeze's reachable bound (`phase_probe`): the chain probe
      (csrc/squeeze_probe.cu: one step of the recurrence alone, operands in
      registers) at 32 and 1024 lines, its checksums bit for bit the same
@@ -97,7 +98,21 @@ Phases, each fatal (non-zero exit, no "ok" line):
      to end and split by span (host entropy stage, frame device stage,
      composite, transform to requested color encoding, the rest). Pixels
      whose luminance lands across the tone map's step on the card and on
-     counted, not held (see TONE_MAP_STEP).
+     counted, not held (see TONE_MAP_STEP);
+  8. the rest of the render pipeline (`phase_features`): K12, the noise
+     field kernel, bit for bit against its plain version (ops/noise.py,
+     numpy) on NOISE_SHAPES (one pixel, W % 16 != 0, partial groups at the
+     right and bottom edges, one group, 2048^2, features_up2_1024's one
+     1024^2 group), timed on the card's clock warm and cold beside its
+     byte bound and its serial steps a lane; then each of
+     FEATURE_FIXTURES (splines, noise and x2 upsampling; an LF frame on
+     the fused path; a two-level XYB LF chain; an alpha at dim_shift 2)
+     decoded within 1 LSB of its reference, alpha exactly, its K1 and K12
+     launches counted from 0 for that decode alone (K1 2 and K12 1 on
+     features_up2_1024, K1 2 on lf_frame_1024's main frame); warm medians
+     of 5 by span (Splines, Noise, Upsampling and LF frame inside them);
+     the FEATURE_TIMED fixtures' K1 passes held and timed as in phase 3,
+     and one traced decode each.
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
 The squeeze's are ops/cuda/squeeze_measure.py (the probe among them);
@@ -401,6 +416,8 @@ def phase_build() -> None:
     check_ptxas("epf", epf_step)
     check_ptxas("modular_squeeze", squeeze_kernel)
     check_ptxas("squeeze_probe", squeeze_kernel)
+    check_ptxas("noise", lambda entry: "noise_field_kernel"
+                if "noise_field_kernel" in entry else entry)
     lib = build.load("epf")
     for step in range(3):
         th, smem, res = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -850,11 +867,13 @@ def squeeze_row(name: str, captured, probe: dict) -> dict:
 SPLIT_SPANS = ("Host entropy stage", "Frame device stage", "Composite")
 
 
-def log_warm_split(name: str, u8: np.ndarray, run, split_spans) -> None:
+def log_warm_split(name: str, u8: np.ndarray, run, split_spans,
+                   nested=()) -> dict:
     """Warm timings of run() (one decode), median of 5: end to end, then
     the same decode split by the port's spans `split_spans` (host clock;
     the readback in to_u8 waits for the card, so device work queued by
-    the device stage can land in "rest")."""
+    the device stage can land in "rest"), and the spans `nested` inside
+    them, each on its own. Returns the medians by span, with "e2e"."""
     import torch
 
     def decode():
@@ -864,7 +883,7 @@ def log_warm_split(name: str, u8: np.ndarray, run, split_spans) -> None:
         return (time.perf_counter() - t0) * 1e3
 
     e2e_ms = [decode() for _ in range(5)]
-    split = {k: [] for k in split_spans + ("rest", "wall")}
+    split = {k: [] for k in split_spans + tuple(nested) + ("rest", "wall")}
     for _ in range(5):
         with collecting_spans() as spans:
             wall = decode()
@@ -872,6 +891,8 @@ def log_warm_split(name: str, u8: np.ndarray, run, split_spans) -> None:
         parts = [totals.get(k, [0.0])[0] for k in split_spans]
         for k, v in zip(split_spans, parts):
             split[k].append(v)
+        for k in nested:
+            split[k].append(totals.get(k, [0.0])[0])
         split["rest"].append(wall - sum(parts))
         split["wall"].append(wall)
     med = {k: statistics.median(v) for k, v in split.items()}
@@ -881,7 +902,11 @@ def log_warm_split(name: str, u8: np.ndarray, run, split_spans) -> None:
         "warm median of 5; the same decode by span, median of 5: "
         + ", ".join(f"{k} {med[k]:.2f}" for k in split_spans)
         + f", rest (postprocess, readback) {med['rest']:.2f}, of "
-        f"{med['wall']:.2f} ms")
+        f"{med['wall']:.2f} ms"
+        + ("; of which " + ", ".join(f"{k} {med[k]:.2f}" for k in nested)
+           if nested else ""))
+    med["e2e"] = e2e
+    return med
 
 
 def phase_decode(probe: dict) -> tuple[dict, dict]:
@@ -1413,6 +1438,199 @@ def phase_color(probe: dict) -> tuple[dict, dict]:
     return k1_paths, k9_paths
 
 
+# the render pipeline's fixtures (phase_features): (name, K1 launches, K12
+# launches) of one decode on the card: splines, noise and x2 upsampling of
+# a filtered 512^2 frame (the slice's main path); an LF frame under a
+# filtered 1024^2 frame (the fused program's LF override); a two-level XYB
+# LF chain; an alpha at dim_shift 2 (K10 x4 on it)
+FEATURE_FIXTURES = (("features_up2_1024", 2, 1), ("lf_frame_1024", 2, 0),
+                    ("lf_chain_xyb_512", 0, 0), ("alpha_shift_512", 0, 0))
+FEATURE_PATH = "features_up2_1024"
+# the fixtures whose K1 passes are held against the plain version and timed
+FEATURE_TIMED = ("features_up2_1024", "lf_frame_1024")
+# the spans of the feature pass, the upsampling and the LF slot, inside
+# "Composite" (an LF frame's upsampling inside "LF frame")
+FEATURE_SPANS = ("Splines", "Noise", "Upsampling", "LF frame")
+# K12 against its plain version, bit for bit: (W, H, group_dim, timed):
+# one pixel, W % 16 != 0, partial groups at the right and bottom edges,
+# one group, 2048^2; timed at 1024^2 and 2048^2 in 256^2 groups (an
+# encoder's default) and at features_up2_1024's field, one 1024^2 group
+NOISE_SHAPES = ((1, 1, 128, False), (17, 5, 128, False),
+                (300, 260, 128, False), (513, 130, 256, False),
+                (256, 256, 256, False), (1024, 1024, 256, True),
+                (2048, 2048, 256, True), (1024, 1024, 1024, True))
+# 32-bit integer operations of one XorShift128+ step and its two floats:
+# the 64-bit add, three 64-bit shifts and three xors (two halves each),
+# and a shift and an or per float; counted against the fp32 rate outside
+# the tensor cores, as the squeeze's are (the data sheet gives no integer
+# rate)
+NOISE_OPS_PER_STEP = 20
+
+
+def noise_bound_ms(w: int, h: int, gdim: int) -> tuple[float, str, int]:
+    """K12's least time on a w x h field in gdim groups: the field's bytes
+    (written once) over the HBM rate against its integer operations over
+    the ALU rate; which of the two; and its XorShift128+ steps in all."""
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze_measure as sm
+    from jxl_oxide_tpu_torch.ops.noise import N_LANES, noise_groups
+
+    steps = sum(N_LANES * wn2 * gh * 3
+                for *_, gh, wn2 in noise_groups(w, h, gdim))
+    byte_ms = 3 * h * w * 4 / sm.HBM_BYTES_PER_S * 1e3
+    op_ms = NOISE_OPS_PER_STEP * steps / sm.ALU_OPS_PER_S * 1e3
+    return (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms
+            else "operations", steps)
+
+
+def noise_device_ms(w: int, h: int, gdim: int, seed0: int) -> tuple:
+    """K12's device ms per launch on the card's clock, warm (20 launches
+    back to back between two CUDA events) and cold (the L2 overwritten
+    before each of 5 launches, each between its own events)."""
+    import torch
+
+    from jxl_oxide_tpu_torch.ops.cuda import noise as k12
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze_measure as sm
+
+    out = torch.empty((3, h, w), dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        k12.launch(out, gdim, seed0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        k12.launch(out, gdim, seed0)
+    end.record()
+    torch.cuda.synchronize()
+    warm = start.elapsed_time(end) / 20
+    flush = torch.empty(int(2 * sm.L2_BYTES) // 4, dtype=torch.float32,
+                        device="cuda")
+    cold = []
+    for _ in range(5):
+        flush.fill_(1.0)
+        start.record()
+        k12.launch(out, gdim, seed0)
+        end.record()
+        torch.cuda.synchronize()
+        cold.append(start.elapsed_time(end))
+    return warm, statistics.fmean(cold)
+
+
+def phase_noise(device) -> dict:
+    """K12 against its plain version (ops/noise.py, numpy on the host) on
+    NOISE_SHAPES, bit for bit; the timed shapes timed warm and cold beside
+    their bound and their serial steps a lane. Returns the rows by shape."""
+    import torch
+
+    from jxl_oxide_tpu_torch.ops.cuda.noise import noise_field_cuda
+    from jxl_oxide_tpu_torch.ops.noise import (
+        noise_field_plain,
+        noise_seed0,
+        noise_steps,
+    )
+
+    seed0 = noise_seed0(1, 0)
+    rows = {}
+    for w, h, gdim, timed in NOISE_SHAPES:
+        got = noise_field_cuda(w, h, gdim, seed0, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = noise_field_plain(w, h, gdim, seed0)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        differ = int((got.cpu().numpy().view(np.uint32)
+                      != want.view(np.uint32)).sum())
+        line = (f"noise field {w}x{h} in {gdim}^2 groups: {differ} samples "
+                "differ from the plain version")
+        if differ:
+            log(line)
+            raise AssertionError(f"K12 {w}x{h}/{gdim}: {differ} samples "
+                                 "differ from the plain version")
+        if timed:
+            warm, cold = noise_device_ms(w, h, gdim, seed0)
+            bound, by, steps = noise_bound_ms(w, h, gdim)
+            lane = noise_steps(w, h, gdim)
+            rows[(w, h, gdim)] = {
+                "ms": warm, "cold_ms": cold, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by,
+                "cold_share_of_bound": bound / cold,
+                "steps_per_lane": lane, "steps": steps,
+                "ns_per_step": warm * 1e6 / lane,
+            }
+            line += (f"; device warm {warm:.4f} ms, cold {cold:.4f} ms, "
+                     f"bound {bound:.4f} ms ({by}; {steps} steps in all), "
+                     f"cold share {bound / cold:.4f}; {lane} serial steps a "
+                     f"lane, {warm * 1e6 / lane:.2f} ns a step; plain "
+                     f"(numpy, host) {plain_ms:.1f} ms")
+        log(line)
+    return rows
+
+
+def phase_features(device) -> tuple[dict, dict]:
+    """The rest of the render pipeline on the card (this slice's paths):
+    K12 held and timed (phase_noise); each of FEATURE_FIXTURES decoded
+    within 1 LSB of its reference (alpha exactly), its K1 and K12
+    launches counted from 0 just before the decode and read just after;
+    the FEATURE_TIMED fixtures' K1 passes held against the plain version
+    and timed, and one traced decode each; warm medians of 5 by span.
+    Returns K1's rows of these paths and K12's row."""
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda import epf_measure as em
+    from jxl_oxide_tpu_torch.ops.cuda import noise as k12
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.noise import noise_field_cuda
+
+    shapes = phase_noise(device)
+    k1_paths, k12_launches = {}, None
+    for name, k1, k12_want in FEATURE_FIXTURES:
+        data, ref = read_fixture(name)
+        fields = []
+        epf_step_cuda.launches = 0
+        noise_field_cuda.launches = 0
+        sq.inv_squeeze_cuda.launches = 0
+        with watching(k12, "noise_field_cuda",
+                      lambda *args: fields.append(args[:3])):
+            u8, captured = em.capture_decode(data)
+        got = (epf_step_cuda.launches, noise_field_cuda.launches)
+        if sq.inv_squeeze_cuda.launches:
+            raise AssertionError(f"{name}: {sq.inv_squeeze_cuda.launches} "
+                                 "K9 launches, none wanted")
+        diff = max_lsb(u8, ref)
+        log(f"{name}: {u8.shape}, max |u8 - reference| {diff}, K1 launches "
+            f"{got[0]}, K12 launches {got[1]} (wanted {k1}, {k12_want}); "
+            f"noise fields (W, H, group) {fields}")
+        if diff > 1 or not alpha_exact(u8, ref):
+            raise AssertionError(f"{name}: decode differs from reference")
+        if got != (k1, k12_want):
+            raise AssertionError(f"{name}: launches {got}, wanted "
+                                 f"{(k1, k12_want)}")
+        if name == FEATURE_PATH:
+            k12_launches = got[1]
+            field_shape = fields[0]
+        log_warm_split(name, u8,
+                       lambda: JxlImage.from_bytes(data).render_frame(0)
+                       .to_u8(), SPLIT_SPANS, FEATURE_SPANS)
+        if name in FEATURE_TIMED:
+            profile_decode(name, data)
+            k1_paths[name] = {"launches": got[0],
+                              **pass_rows(name, captured)}
+    main = shapes[field_shape]
+    k12_row = {
+        "name": "noise_field",
+        "route": "cuda",
+        "source": "jxl_oxide_tpu_torch/csrc/noise.cu",
+        "replaces": "jxl_oxide_tpu/render/features.py:419 _noise_field "
+                    "(host numpy; no TPU kernel)",
+        "launches": k12_launches,
+        # integer bits: every comparison was equality
+        "max_abs_err": 0,
+        **main,
+        "library_ms": None,
+        "shapes": {f"{w}x{h}/{g}": row for (w, h, g), row in shapes.items()},
+    }
+    return k1_paths, k12_row
+
+
 def main() -> int:
     try:
         import torch
@@ -1445,6 +1663,8 @@ def main() -> int:
     report["paths"].update(phase_animation(device))
     color_k1, color_k9 = phase_color(probe)
     report["paths"].update(color_k1)
+    feature_k1, noise = phase_features(device)
+    report["paths"].update(feature_k1)
     report["max_abs_err"] = max([report["max_abs_err"], worst]
                                 + [p["max_abs_err"]
                                    for p in report["paths"].values()])
@@ -1465,7 +1685,7 @@ def main() -> int:
         "paths": {MODULAR_PATH: squeeze_paths[MODULAR_PATH], **color_k9},
     }
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [report, squeeze]}))
+    print(json.dumps({"kernels": [report, squeeze, noise]}))
     print(f"card: {em.card()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

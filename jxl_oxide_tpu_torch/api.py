@@ -18,6 +18,11 @@ the keyframes it composites.
     runs the inverse transforms when the gate keeps them on the host; the
     device stage runs them otherwise (models/modular.py, the squeeze as a
     CUDA kernel), then the render tail (render/render.py).
+Between the two and the blend, render/context.py runs the frame's
+patches, splines and noise at sample resolution (the noise field on the
+card as a CUDA kernel, ops/cuda/noise.py), then the frame and EC
+upsampling (ops/upsample.py); an LF frame goes to its LF slot for the
+frame that uses it.
 Then YCbCr -> RGB for YCbCr frames and the color tail (before blending
 for a blending frame, render/context.py `_convert_color_for_record`);
 the EPF is a CUDA kernel on both. A greyscale frame is one colour plane
@@ -438,12 +443,15 @@ class JxlImage:
         `frame_indices` (a keyframe's dependency cone: a frame that is not
         the target can carry what the target does not). Image: any EXIF
         orientation, at most one extra channel (an alpha with integer
-        samples at full resolution), any colour encoding (XYB, an RGB or
+        samples, at any dim_shift), any colour encoding (XYB, an RGB or
         grey enum, an embedded ICC profile). Frames: any number, blended,
-        cropped or reference-only, with patches; VarDCT 4:4:4 or
+        cropped or reference-only, with patches, splines and noise, frame
+        and EC upsampling, LF frames and LF-frame chains; VarDCT 4:4:4 or
         chroma-subsampled YCbCr (4:2:0, 4:2:2, 4:4:0), or Modular (4:4:4
-        YCbCr included) with integer or float samples. Anything else raises
-        JxlNotSupportedError naming the ROADMAP item that will port it."""
+        YCbCr included) with integer or float samples. Anything else
+        raises JxlNotSupportedError naming the ROADMAP item that will port
+        it; progressive and partial decode (item 9b) are other entry
+        points, which raise where they are called."""
         meta = self.image_header.metadata
         if len(meta.ec_info) > 1 or any(
                 info.ty != ExtraChannelType.ALPHA or info.bit_depth.is_float
@@ -451,21 +459,8 @@ class JxlImage:
             raise _not_supported(
                 "extra channels other than one integer alpha (spot colours, "
                 "float alpha and other types)", 17)
-        if any(info.dim_shift for info in meta.ec_info):
-            raise _not_supported("alpha at a lower resolution (dim_shift)",
-                                 "9b")
         for i in frame_indices:
             header = self._frames[i].header
-            flags = header.flags
-            if flags.splines or flags.noise:
-                raise _not_supported("splines and noise", "9a-rest")
-            if (header.frame_type == FrameType.LF_FRAME
-                    or flags.use_lf_frame or header.lf_level != 0):
-                raise _not_supported("LF frames", "9b")
-            if header.upsampling != 1 or any(
-                    u != 1 for u in header.ec_upsampling):
-                raise _not_supported(
-                    "upsampling (EC upsampling included)", "9b")
             subsampled = any(j != 0 for j in header.jpeg_upsampling)
             if header.encoding == Encoding.VARDCT:
                 if header.do_ycbcr and not subsampled:
@@ -621,10 +616,11 @@ class JxlImage:
     def _dependency_cone(self, target: int):
         """Frame indices (ascending) that must render for frame `target`,
         and cached keyframes that seed reference slots, keyed by (writer
-        frame index, slot). The walk stops at a keyframe whose canvas is
-        cached: the slot it saved is that canvas. The cached object is
-        pinned here, since the cache may evict it while the cone
-        renders."""
+        frame index, slot). A frame needs the writers of the slots it
+        reads and, with use_lf_frame, the LF frame of the next level. The
+        walk stops at a keyframe whose canvas is cached: the slot it saved
+        is that canvas. The cached object is pinned here, since the cache
+        may evict it while the cone renders."""
         frames = self._frames
         needed = {target}
         seeds: dict[tuple[int, int], KeyframeRender] = {}
@@ -633,7 +629,18 @@ class JxlImage:
         stack = [target]
         while stack:
             i = stack.pop()
-            for s in self._slot_reads(frames[i].header):
+            h = frames[i].header
+            if h.flags.use_lf_frame:
+                # the LF frame of the next level, the last one before i
+                for j in range(i - 1, -1, -1):
+                    hj = frames[j].header
+                    if (hj.frame_type == FrameType.LF_FRAME
+                            and hj.lf_level == h.lf_level + 1):
+                        if j not in needed:
+                            needed.add(j)
+                            stack.append(j)
+                        break
+            for s in self._slot_reads(h):
                 for j in range(i - 1, -1, -1):
                     hj = frames[j].header
                     if hj.can_reference and hj.save_as_reference == s:
@@ -679,14 +686,17 @@ class JxlImage:
 
     def _render_cone_frames(self, cone: list[int]) -> dict:
         """Frame renders of the cone, decoded on up to 4 threads when it
-        has more than one frame (the reference's frame pipelining,
-        jxl-render/src/lib.rs:488-607); compositing stays in order. Each
-        job runs in a copy of the caller's context, so it sees the decode
-        device and the memory tracker: a worker that did not would put
-        the Modular tail back on the host."""
+        has more than one such frame (the reference's frame pipelining,
+        jxl-render/src/lib.rs:488-607); compositing stays in order. A
+        frame that sets use_lf_frame needs its LF slot first: it renders
+        inline, in RenderContext.add_frame (jxl_oxide_tpu/api.py:844-848).
+        Each job runs in a copy of the caller's context, so it sees the
+        decode device and the memory tracker: a worker that did not would
+        put the Modular tail back on the host."""
+        frames = self._frames
+        cone = [i for i in cone if not frames[i].header.flags.use_lf_frame]
         if len(cone) <= 1:
             return {}
-        frames = self._frames
         device = self.device
 
         def job(i):
@@ -709,11 +719,17 @@ class JxlImage:
         cone, seeds = self._dependency_cone(target)
         self._check_envelope(cone)
         frames = self._frames
-        # the last cone frame that reads each slot
+        kf_indices = self._keyframe_global_indices()
+        # the last cone frame that reads each slot, and each LF slot (LF
+        # slot l is read by the frames of lf_level l that use it)
         last_slot_read: dict[int, int] = {}
+        last_lf_read: dict[int, int] = {}
         for i in cone:
-            for s in self._slot_reads(frames[i].header):
+            h = frames[i].header
+            for s in self._slot_reads(h):
                 last_slot_read[s] = i
+            if h.flags.use_lf_frame:
+                last_lf_read[h.lf_level] = i
         with use_tracker(self._tracker), use_decode_device(self.device):
             ctx = RenderContext(self.image_header, self.device)
             # seed events in timeline order: each applies just before the
@@ -727,6 +743,12 @@ class JxlImage:
                     ctx.set_reference(s, ([p.clone() for p in kf.color],
                                           [p.clone() for p in kf.extra]))
                     pos += 1
+                # the noise seeds' counters follow from the headers: set
+                # them for frames the cone skipped
+                prev_kfs = [g for g in kf_indices if g < i]
+                ctx._frame_counter = i
+                ctx._num_prev_keyframes = len(prev_kfs)
+                ctx._last_keyframe_idx = prev_kfs[-1] if prev_kfs else None
                 kf = ctx.add_frame(frames[i], fr=rendered.pop(i, None))
                 if kf is not None:
                     # a retained canvas charges the memory budget
@@ -736,6 +758,9 @@ class JxlImage:
                     if (ctx.reference[s] is not None
                             and last_slot_read.get(s, -1) <= i):
                         ctx.release_slot(s)
+                    if (ctx.lf_frames[s] is not None
+                            and last_lf_read.get(s, -1) <= i):
+                        ctx.release_lf_frame(s)
         result = self._keyframe_cache.get(keyframe_idx)
         if result is None:
             raise JxlValidationError(
@@ -765,3 +790,7 @@ class JxlImage:
         raise JxlNotSupportedError(
             "region-of-interest decode is not ported yet (ROADMAP Queue 1 "
             "item 14)")
+
+    def render_loading_frame(self):
+        raise _not_supported(
+            "progressive and partial decode (render_loading_frame)", "9b")

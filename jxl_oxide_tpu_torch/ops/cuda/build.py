@@ -3,8 +3,8 @@ interface and load it with ctypes.
 
 nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC:
 no PyTorch headers, so a build takes seconds. Each library (`SOURCES`:
-the EPF kernel, the modular squeeze kernel, and the squeeze's chain probe,
-a measurement no decode calls) goes into the package's
+the EPF kernel, the modular squeeze kernel, the squeeze's chain probe, a
+measurement no decode calls, and the noise field kernel) goes into the package's
 gitignored `_build/` directory at first use and is rebuilt when one of its
 own sources is newer. `-Xptxas -v` output (registers, shared memory,
 spills) is kept beside the library as `<name>.ptxas.txt`.
@@ -30,6 +30,7 @@ SOURCES = {
     "epf": ("epf.cu", "epf_math.cuh"),
     "modular_squeeze": ("modular_squeeze.cu", "squeeze_math.cuh"),
     "squeeze_probe": ("squeeze_probe.cu", "squeeze_math.cuh"),
+    "noise": ("noise.cu", "noise_math.cuh"),
 }
 
 _lock = threading.Lock()

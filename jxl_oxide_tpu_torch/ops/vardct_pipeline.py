@@ -640,7 +640,9 @@ _ALIGN = 16
 def _flatten(inputs):
     flat = []
     for x in inputs:
-        if isinstance(x, (tuple, list)):
+        if isinstance(x, torch.Tensor):
+            flat.append(x)
+        elif isinstance(x, (tuple, list)):
             flat.append(tuple(np.ascontiguousarray(a) for a in x))
         else:
             flat.append(np.ascontiguousarray(x))
@@ -666,10 +668,19 @@ def upload_inputs(inputs, device):
     tuple) as tensors on `device`, moved by ONE host-to-device copy: all
     arrays are packed into one (pinned, on CUDA) byte buffer, copied with
     non_blocking=True, and sliced back into typed views on the device.
-    uint16 index deltas travel as an int16 view."""
+    uint16 index deltas travel as an int16 view. An input that is a
+    tensor already (an LF frame's planes, render/vardct.py) stays where it
+    is; it must be on `device`."""
     device = torch.device(device)
     flat = _flatten(inputs)
-    arrays = [a for x in flat for a in (x if isinstance(x, tuple) else (x,))]
+    for x in flat:
+        if isinstance(x, torch.Tensor) and (
+                x.device.type != device.type
+                or None not in (x.device.index, device.index)
+                and x.device.index != device.index):
+            raise ValueError(f"program input on {x.device}, not {device}")
+    arrays = [a for x in flat if not isinstance(x, torch.Tensor)
+              for a in (x if isinstance(x, tuple) else (x,))]
     offsets = []
     total = 0
     for a in arrays:
@@ -691,7 +702,9 @@ def upload_inputs(inputs, device):
     out = []
     k = 0
     for x in flat:
-        if isinstance(x, tuple):
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, tuple):
             out.append(tuple(views[k:k + len(x)]))
             k += len(x)
         else:

@@ -14,8 +14,13 @@ canvas saved to a slot is cloned, a base read from a slot is cloned
 before a blend writes into it, and a patch reads the destination alpha
 as a view, with the colour channels blended before the alpha.
 
-LF frames (their slots) and the partial composite of a loading frame
-belong to ROADMAP Queue 1 item 9b; splines and noise to item 9a-rest.
+The feature pass runs on each frame's planes at sample resolution, in
+the reference's order (render.rs render_features): patches, splines,
+noise; then the frame and EC upsampling (render/render.py), then the
+colour transform before blending. LF frames render, upsample and go to
+the LF slot of their level, for the frames that set use_lf_frame. The
+partial composite of a loading frame (progressive decode) belongs to
+ROADMAP Queue 1 item 9b.
 """
 
 from __future__ import annotations
@@ -28,7 +33,12 @@ from ..headers.frame import BlendMode, FrameType
 from ..utils.alloc import release_alloc, track_alloc
 from ..utils.errors import JxlNotSupportedError
 from ..utils.trace import span
-from .render import FrameRender, render_frame, upsample_ec_to_color
+from .render import (
+    FrameRender,
+    apply_frame_upsampling,
+    render_frame,
+    upsample_ec_to_color,
+)
 
 __all__ = ["KeyframeRender", "RenderContext", "planes_bytes"]
 
@@ -131,6 +141,16 @@ class RenderContext:
         self.width = image_header.size.width
         self.height = image_header.size.height
         self.reference = [None] * 4  # saved (colour, extra) plane lists
+        # LF slots: slot l holds the colour planes of the LF frame of
+        # level l + 1, read by the frames of lf_level l that set
+        # use_lf_frame
+        self.lf_frames = [None] * 4
+        # noise-seed counters (features/noise.rs frame visibility); they
+        # follow from the headers alone, so a cone render sets them for
+        # each frame it renders (api.py `_render_keyframe`)
+        self._frame_counter = 0
+        self._num_prev_keyframes = 0
+        self._last_keyframe_idx: int | None = None
 
     # -- tracked slots (jxl-grid alloc_tracker.rs: a release per save) -----
 
@@ -142,19 +162,51 @@ class RenderContext:
     def release_slot(self, slot: int) -> None:
         self.set_reference(slot, None)
 
+    def set_lf_frame(self, level: int, planes) -> None:
+        release_alloc(planes_bytes(self.lf_frames[level]))
+        track_alloc(planes_bytes(planes))
+        self.lf_frames[level] = planes
+
+    def release_lf_frame(self, level: int) -> None:
+        self.set_lf_frame(level, None)
+
+    def _attach_lf_planes(self, frame) -> None:
+        """Hand a use_lf_frame frame the LF planes of its level: the
+        VarDCT paths take them as its pre-dequantized LF
+        (render/vardct.py `lf_override`)."""
+        header = frame.header
+        if not header.flags.use_lf_frame:
+            return
+        lf_planes = self.lf_frames[header.lf_level]
+        if lf_planes is None:
+            raise JxlNotSupportedError(
+                f"use_lf_frame with empty LF slot {header.lf_level}")
+        frame._lf_frame_planes = lf_planes
+
     def add_frame(self, frame, fr: FrameRender | None = None
                   ) -> KeyframeRender | None:
         """Render (unless `fr` is given) and composite one frame, in
-        codestream order. Returns the keyframe render of a keyframe."""
+        codestream order. Returns the keyframe render of a keyframe.
+
+        An LF frame (render/lib.rs LF slots) renders at its 8^lf_level
+        downsampling, upsamples, and goes to slot lf_level - 1; it may
+        itself use the next level's LF frame."""
         header = frame.header
-        if (header.frame_type == FrameType.LF_FRAME
-                or header.flags.use_lf_frame):
-            raise JxlNotSupportedError(
-                "LF frames are not ported yet (ROADMAP Queue 1 item 9b)")
+        self._attach_lf_planes(frame)
         if fr is None:
             fr = render_frame(frame, self.device)
+        # the frame object outlives this render: let go of the slot's
+        # device planes
+        frame._lf_frame_planes = None
+        if header.frame_type == FrameType.LF_FRAME:
+            with span("LF frame"):
+                apply_frame_upsampling(fr)
+                self.set_lf_frame(header.lf_level - 1, list(fr.color))
+            self._frame_counter += 1
+            return None
         with span("Composite"):
             self._apply_features(fr, frame)
+            apply_frame_upsampling(fr)
             self._convert_color_for_record(fr, frame)
             canvas_color, canvas_extra = self._composite(fr, frame)
             if header.can_reference:
@@ -165,22 +217,54 @@ class RenderContext:
                     [p.clone() for p in canvas_extra],
                 ))
         if not header.is_keyframe:
+            self._frame_counter += 1
             return None
+        self._num_prev_keyframes += 1
+        self._last_keyframe_idx = self._frame_counter
+        self._frame_counter += 1
         return KeyframeRender(color=canvas_color, extra=canvas_extra,
                               frame=frame, name=header.name,
                               duration=header.duration, ct_done=fr.ct_done)
 
     def _apply_features(self, fr: FrameRender, frame) -> None:
-        """Patches (render.rs render_features); splines and noise raise
-        at LfGlobal parsing (item 9a-rest)."""
+        """Patches, then splines, then noise, on the frame's planes at
+        sample resolution (render.rs render_features). Splines and noise
+        touch three colour planes only, as in the reference."""
         lf_global = frame.lf_global
-        if lf_global is None or lf_global.patches is None:
+        if lf_global is None or not (lf_global.patches or lf_global.splines
+                                     or lf_global.noise):
             return
-        # the patches write into the frame's planes: own them
+        header = frame.header
+        # the features write into the frame's planes: own them
         fr.color = [p.clone() for p in fr.color]
-        upsample_ec_to_color(fr)
         fr.extra = [p.clone() for p in fr.extra]
-        self._apply_patches(fr, lf_global.patches)
+        base_corr = None
+        if lf_global.vardct is not None:
+            cc = lf_global.vardct.lf_chan_corr
+            base_corr = (cc.base_correlation_x, cc.base_correlation_b)
+        if lf_global.patches is not None:
+            # patch blending needs the extra channels at the colour
+            # channels' (sample) resolution first (render.rs:183)
+            upsample_ec_to_color(fr)
+            self._apply_patches(fr, lf_global.patches)
+        if lf_global.splines is not None and len(fr.color) == 3:
+            from .features import render_spline
+
+            render_spline(fr.color, lf_global.splines, base_corr,
+                          header.width, header.height)
+        if lf_global.noise is not None and len(fr.color) == 3:
+            from .features import render_noise
+
+            is_kf = header.is_keyframe
+            visible = self._num_prev_keyframes + (1 if is_kf else 0)
+            if is_kf:
+                invisible = 0
+            elif self._last_keyframe_idx is None:
+                invisible = 1 + self._frame_counter
+            else:
+                invisible = self._frame_counter - self._last_keyframe_idx
+            render_noise(fr.color, header, visible, invisible, base_corr,
+                         lf_global.noise.lut)
 
     def _convert_color_for_record(self, fr: FrameRender, frame) -> None:
         """The colour transform before blending and recording when

@@ -20,7 +20,7 @@ from ..headers.image import ImageHeader
 from ..io.bitstream import Bitstream
 from ..models.modular import ChannelInfo, ModularImage
 from ..models.modular_ma import MaConfig
-from ..utils.errors import JxlEofError, JxlNotSupportedError, JxlValidationError
+from ..utils.errors import JxlEofError, JxlValidationError
 
 __all__ = ["Frame", "LfGlobal", "GlobalModular"]
 
@@ -79,19 +79,18 @@ def parse_lf_global(
 ) -> LfGlobal:
     from ..models import vardct as vardct_mod
     from ..utils.trace import span
-    from .features import Patches
+    from .features import NoiseParameters, Patches, Splines
 
-    # splines and noise are outside the port's envelope until ROADMAP
-    # Queue 1 item 9a-rest ports them
     flags = frame_header.flags
-    if flags.splines or flags.noise:
-        raise JxlNotSupportedError(
-            "splines/noise are not ported yet (ROADMAP Queue 1 item 9a-rest)"
-        )
     patches = splines = noise = None
     if flags.patches:
         with span("Decode Patches"):
             patches = Patches.parse(bs, image_header, frame_header)
+    if flags.splines:
+        with span("Decode Splines"):
+            splines = Splines.parse(bs, frame_header)
+    if flags.noise:
+        noise = NoiseParameters.parse(bs)
 
     # LfChannelDequantization (jxl-vardct lf.rs:11-16)
     if bs.read_bool():

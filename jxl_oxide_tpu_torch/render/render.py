@@ -39,14 +39,13 @@ import torch
 from ..headers.frame import Encoding
 from ..io.bitstream import Bitstream
 from ..ops.filters import apply_epf, apply_gabor, sigma_map_from_blocks
-from ..utils.errors import JxlNotSupportedError
 from ..utils.options import use_decode_device
 from ..utils.trace import span, traced
 
-__all__ = ["FrameRender", "HostStage", "ModularHostStage", "device_stage",
-           "extra_channel_planes", "host_stage", "render_frame",
-           "render_modular_tail", "render_vardct_tail",
-           "upsample_ec_to_color"]
+__all__ = ["FrameRender", "HostStage", "ModularHostStage",
+           "apply_frame_upsampling", "device_stage", "extra_channel_planes",
+           "host_stage", "render_frame", "render_modular_tail",
+           "render_vardct_tail", "upsample_ec_to_color"]
 
 
 @dataclass
@@ -61,6 +60,12 @@ class FrameRender:
     # colour already in the signalled encoding (render/context.py
     # `_convert_color_for_record`): the final colour tail skips it
     ct_done: bool = False
+    # the extra channels were brought to the colour channels' resolution
+    # for patches (`upsample_ec_to_color`): what remains of their factor
+    # is the frame's
+    ec_at_color_res: bool = False
+    # `apply_frame_upsampling` ran
+    upsampled: bool = False
 
 
 @dataclass
@@ -386,13 +391,64 @@ def render_frame(frame, device) -> FrameRender:
         return device_stage(host_stage(frame), device)
 
 
+def _ec_factor(header, meta, i: int) -> int:
+    """Total EC upsampling factor to full resolution: ec_upsampling <<
+    dim_shift (render.rs:110-118 upsampling_factor)."""
+    return (
+        header.ec_upsampling[i] if i < len(header.ec_upsampling) else 1
+    ) << meta.ec_info[i].dim_shift
+
+
 def upsample_ec_to_color(fr: FrameRender) -> None:
-    """Extra channels at the colour channels' sample resolution before
-    patch blending (jxl_oxide_tpu/render/render.py upsample_ec_to_color).
-    The port's envelope has no EC upsampling and no dim_shift, so this is
-    the identity; a plane of another size raises."""
-    h, w = fr.frame.header.sample_height(), fr.frame.header.sample_width()
-    if any(tuple(p.shape) != (h, w) for p in fr.extra):
-        raise JxlNotSupportedError(
-            "extra channels at a lower resolution are not ported yet "
-            "(ROADMAP Queue 1 item 9b)")
+    """Bring the extra channels to the colour channels' (sample)
+    resolution before patch blending (render.rs:183, image.rs:487-513
+    ec_to_color_only: each channel upsamples by its factor over the
+    frame's; jxl_oxide_tpu/render/render.py upsample_ec_to_color). With
+    patches the EC upsampling is therefore two-stage (EC -> colour here,
+    colour -> full in `apply_frame_upsampling`), which rounds differently
+    from the one-shot EC -> full upsample of a frame without patches, as
+    the reference does."""
+    if fr.ec_at_color_res:
+        return
+    from ..ops.upsample import upsample_nonseparable
+
+    header = fr.frame.header
+    meta = fr.frame.image_header.metadata
+    th, tw = header.sample_height(), header.sample_width()
+    for i, p in enumerate(fr.extra):
+        if tuple(p.shape) == (th, tw):
+            continue
+        factor = _ec_factor(header, meta, i) // header.upsampling
+        fr.extra[i] = upsample_nonseparable(p, factor, meta)[:th, :tw]
+    fr.ec_at_color_res = True
+
+
+def apply_frame_upsampling(fr: FrameRender) -> None:
+    """Frame and EC non-separable upsampling to the full frame size, after
+    the features (render.rs:149 upsample_nonseparable; features run at
+    sample resolution in full-resolution coordinates, clipped). Once per
+    frame render (jxl_oxide_tpu/render/render.py apply_frame_upsampling)."""
+    if fr.upsampled:
+        return
+    fr.upsampled = True
+    from ..ops.upsample import upsample_nonseparable
+
+    header = fr.frame.header
+    meta = fr.frame.image_header.metadata
+    target_h, target_w = header.sample_height(1), header.sample_width(1)
+    with span("Upsampling"):
+        if header.upsampling > 1:
+            fr.color = [
+                upsample_nonseparable(p, header.upsampling, meta)[
+                    :target_h, :target_w]
+                for p in fr.color
+            ]
+        for i, p in enumerate(fr.extra):
+            if tuple(p.shape) == (target_h, target_w):
+                continue
+            # the remaining factor: the whole EC factor, or the frame's
+            # where patches staged the EC at colour resolution already
+            factor = (header.upsampling if fr.ec_at_color_res
+                      else _ec_factor(header, meta, i))
+            fr.extra[i] = upsample_nonseparable(p, factor, meta)[
+                :target_h, :target_w]

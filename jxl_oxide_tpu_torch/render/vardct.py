@@ -16,8 +16,11 @@ package does:
   - the staged path, per-plane dequant and bucketed transforms, when a
     dense plan has more than DENSE_PLAN_MAX_ENTRIES entries; the render
     tail (render/render.py) then upsamples and filters.
-The sharded, ROI and progressive paths are not ported yet (ROADMAP Queue
-1 items 9 and 13).
+A frame that sets use_lf_frame takes the planes of its LF frame (device
+tensors, `lf_override`) as its pre-dequantized LF on the fused 4:4:4 and
+staged paths, edge-padded on their device. The sharded, ROI and
+progressive paths are not ported yet (ROADMAP Queue 1 items 9b, 13 and
+14).
 """
 
 from __future__ import annotations
@@ -38,7 +41,6 @@ from ..models.vardct import (
     jpeg_shifts,
     write_hf_coeff,
 )
-from ..utils.errors import JxlNotSupportedError
 from ..utils.trace import span, traced
 
 __all__ = ["HfGlobal", "LfGroup", "VardctFrameState"]
@@ -378,8 +380,8 @@ class VardctFrameState:
         # fused subsampled path: planes already at full resolution
         # (chroma upsample fused into the device program)
         self.chroma_upsampled = False
-        # LF planes handed down from a rendered LF frame (use_lf_frame);
-        # LF frames are not ported (ROADMAP Queue 1 item 9)
+        # LF planes handed down from a rendered LF frame (use_lf_frame,
+        # render/context.py): colour planes on the decode device
         self.lf_override = getattr(frame, "_lf_frame_planes", None)
         self.lf_groups: dict[int, LfGroup] = {}
         self.opsin = meta.opsin_inverse_matrix
@@ -710,6 +712,26 @@ class VardctFrameState:
 
     # -- device stage -------------------------------------------------------
 
+    def padded_lf_override(self) -> list:
+        """The LF frame's colour planes (device tensors, `lf_override`) as
+        this frame's LF: each cut to its channel's LF shape, or
+        edge-padded to it on the planes' device (rows below repeat the
+        last row, then columns to the right the last column, as the JAX
+        package pads in numpy, render/vardct.py:806-814). One pad per
+        channel and frame; nothing goes to the host."""
+        out = []
+        for c in range(3):
+            lh, lw = self.lf_shapes[c]
+            src = self.lf_override[c].to(torch.float32)
+            sh, sw = min(src.shape[0], lh), min(src.shape[1], lw)
+            p = src[:sh, :sw]
+            if (sh, sw) != (lh, lw):
+                p = torch.nn.functional.pad(
+                    p[None, None], (0, lw - sw, 0, lh - sh),
+                    mode="replicate")[0, 0]
+            out.append(p.contiguous())
+        return out
+
     def run_device_pipeline(self, hf_global: HfGlobal | None, device):
         """Dequant -> CfL -> inverse transforms (and, on the fused paths,
         the filters), on `device`. Returns [x, y, b] float32 planes: at
@@ -723,6 +745,7 @@ class VardctFrameState:
         coded when !use_lf_frame, header.rs:25)."""
         if not self.subsampled:
             return self._run_fused(hf_global, device)
+        assert self.lf_override is None
         return self._run_fused_subsampled(hf_global, device)
 
     _fused_cache: dict = {}
@@ -767,6 +790,14 @@ class VardctFrameState:
         kb = corr.base_correlation_b + (corr.b_factor_lf - 128) / corr.colour_factor
 
         skip_smoothing = header.flags.skip_adaptive_lf_smoothing
+        lf_override = None
+        if self.lf_override is not None:
+            # LF comes pre-dequantized from the LF frame: identity scale,
+            # no LF CfL, no smoothing (vardct/mod.rs:176-182)
+            lf_override = torch.stack(self.padded_lf_override())
+            lf_scale_arr = np.ones(3, dtype=np.float32)
+            kx, kb = 0.0, 0.0
+            skip_smoothing = True
 
         buckets = self.buckets(0)
         matrices = {}
@@ -800,10 +831,14 @@ class VardctFrameState:
             coeff_stack = np.stack(
                 [p[y0:y1, x0:x1] for p in self.coeff_planes]
             )
-            lf_input = np.stack([
-                p[y0 // 8 : -(-y1 // 8), x0 // 8 : -(-x1 // 8)]
-                for p in self.lf_quant_planes
-            ])
+            if lf_override is not None:
+                lf_input = lf_override[:, y0 // 8 : -(-y1 // 8),
+                                       x0 // 8 : -(-x1 // 8)].contiguous()
+            else:
+                lf_input = np.stack([
+                    p[y0 // 8 : -(-y1 // 8), x0 // 8 : -(-x1 // 8)]
+                    for p in self.lf_quant_planes
+                ])
             x_grid = np.ascontiguousarray(
                 x_grid[y0 // 64 : -(-y1 // 64), x0 // 64 : -(-x1 // 64)]
             )
@@ -832,7 +867,8 @@ class VardctFrameState:
             buckets = rbuckets
         else:
             coeff_stack = np.stack(self.coeff_planes)
-            lf_input = np.stack(self.lf_quant_planes)
+            lf_input = (lf_override if lf_override is not None
+                        else np.stack(self.lf_quant_planes))
         return dict(
             quantizer=quantizer,
             lf_scale_arr=lf_scale_arr,
@@ -1204,9 +1240,6 @@ class VardctFrameState:
             upload_inputs,
         )
 
-        if self.lf_override is not None:
-            raise JxlNotSupportedError(
-                "LF frames are not ported yet (ROADMAP Queue 1 item 9)")
         header = self.header
         quantizer = self.frame.lf_global.vardct.quantizer
         lf_dequant = self.frame.lf_global.lf_dequant
@@ -1236,27 +1269,33 @@ class VardctFrameState:
         # LF: dequant (copy_lf_dequant, vardct/mod.rs:387-413)
         scale_inv = quantizer.global_scale * quantizer.quant_lf
         precision_scale = 1 << (9 - self.extra_precision)
-        lf_planes = [
-            lf_quant[c].to(torch.float32) * float(np.float32(
-                lf_dequant[c] * precision_scale / scale_inv))
-            for c in range(3)
-        ]
-        if not self.subsampled:
-            kx = (corr.base_correlation_x
-                  + (corr.x_factor_lf - 128) / corr.colour_factor)
-            kb = (corr.base_correlation_b
-                  + (corr.b_factor_lf - 128) / corr.colour_factor)
-            lf_x, lf_b = cfl_lf(lf_planes[0], lf_planes[1], lf_planes[2],
-                                kx, kb)
-            lf_planes = [lf_x, lf_planes[1], lf_b]
-        if not header.flags.skip_adaptive_lf_smoothing:
-            lf_scale = tuple(
-                np.float32(512.0 * lf_dequant[c] / scale_inv)
+        if self.lf_override is not None:
+            # LF comes pre-dequantized from the LF frame: identity scale,
+            # no LF CfL, no smoothing (vardct/mod.rs:176-182), as on the
+            # fused path
+            lf_planes = self.padded_lf_override()
+        else:
+            lf_planes = [
+                lf_quant[c].to(torch.float32) * float(np.float32(
+                    lf_dequant[c] * precision_scale / scale_inv))
                 for c in range(3)
-            )
-            lf_planes = list(adaptive_lf_smoothing(
-                lf_planes[0], lf_planes[1], lf_planes[2], lf_scale
-            ))
+            ]
+            if not self.subsampled:
+                kx = (corr.base_correlation_x
+                      + (corr.x_factor_lf - 128) / corr.colour_factor)
+                kb = (corr.base_correlation_b
+                      + (corr.b_factor_lf - 128) / corr.colour_factor)
+                lf_x, lf_b = cfl_lf(lf_planes[0], lf_planes[1],
+                                    lf_planes[2], kx, kb)
+                lf_planes = [lf_x, lf_planes[1], lf_b]
+            if not header.flags.skip_adaptive_lf_smoothing:
+                lf_scale = tuple(
+                    np.float32(512.0 * lf_dequant[c] / scale_inv)
+                    for c in range(3)
+                )
+                lf_planes = list(adaptive_lf_smoothing(
+                    lf_planes[0], lf_planes[1], lf_planes[2], lf_scale
+                ))
 
         # HF: dequant + CfL + transforms
         coeffs = [

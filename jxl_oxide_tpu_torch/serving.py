@@ -103,9 +103,10 @@ def _host_stage_fast(img: JxlImage, frame: int):
     for (jxl_oxide_tpu/serving.py:127-129: a multi-frame stream
     composites, and goes per image), one VarDCT frame inside the port's
     envelope (api.py `_check_envelope`: 4:4:4 or chroma-subsampled, at
-    most one full-resolution integer alpha, no upsampling or LF frame)
-    in XYB or an enum RGB encoding with no ICC leg (no embedded profile,
-    no requested one: jxl_oxide_tpu/serving.py:127-142) and no tone map
+    most one integer alpha) with no upsampling, EC upsampling or
+    dim_shift, no LF frame, no splines and no noise, in XYB or an enum
+    RGB encoding with no ICC leg (no embedded profile, no requested one:
+    jxl_oxide_tpu/serving.py:127-142) and no tone map
     that detects the peak (its peak would be the stack's, not the
     image's), that covers the canvas as it is (no crop
     offset, the image's size, no patches; the stacked program returns
@@ -131,9 +132,22 @@ def _host_stage_fast(img: JxlImage, frame: int):
     fr = img._frames[0]
     header = fr.header
     size = img.image_header.size
+    flags = header.flags
+    # the features, upsampling and LF frames of the per-image path
+    # (render/context.py) are not in the stacked program: such a stream
+    # goes per image (jxl_oxide_tpu/serving.py:121-125, 146-157)
+    if (header.upsampling != 1
+            or any(u != 1 for u in header.ec_upsampling)
+            or any(info.dim_shift
+                   for info in img.image_header.metadata.ec_info)
+            or header.lf_level != 0
+            or flags.use_lf_frame
+            or flags.splines
+            or flags.noise):
+        return None
     if (img.image_header.metadata.orientation != 1
             or header.encoding != Encoding.VARDCT
-            or header.flags.patches
+            or flags.patches
             or not header.is_last
             or header.have_crop or header.x0 or header.y0
             or header.sample_width() != size.width

@@ -162,7 +162,14 @@ def _float_alpha():
     (_float_alpha, "item 17"),
 ])
 def test_out_of_envelope_alpha_raises(make, item):
-    img = JxlImage.from_bytes(make(), device="cpu")
+    """Alphas outside the envelope raise naming their ROADMAP item. An
+    alpha at a dim_shift (item 9) decodes since the port's seventh slice:
+    its colour within 1 LSB of the JAX package, its alpha bit for bit."""
+    data = make()
+    if item == "item 9":
+        tp.assert_keyframes_match(data, exact=False)
+        return
+    img = JxlImage.from_bytes(data, device="cpu")
     with pytest.raises(JxlNotSupportedError, match=f"ROADMAP .*{item}"):
         img.render_frame(0)
 

@@ -291,7 +291,8 @@ def _noise():
 def _upsampling():
     rng = np.random.default_rng(2)
     base = [rng.integers(0, 256, (16, 16)) for _ in range(3)]
-    return encode_jxl_modular(base, bit_depth=8, upsampling=2)
+    return encode_jxl_modular(base, bit_depth=8, upsampling=2,
+                              image_size=(32, 32))
 
 
 def _second_alpha():
@@ -314,18 +315,28 @@ def _second_alpha():
     (_second_alpha, "item 17"),
 ])
 def test_out_of_envelope_cones_raise(make, item):
-    img = JxlImage.from_bytes(make(), device="cpu")
+    """A cone outside the envelope raises naming its ROADMAP item. The
+    splines, noise and upsampling of items 9a-rest and 9b were outside it
+    until the port's seventh slice; their cones now decode as the JAX
+    package's do."""
+    data = make()
+    if item in ("item 9a-rest", "item 9b"):
+        tp.assert_keyframes_match(data, exact=False)
+        return
+    img = JxlImage.from_bytes(data, device="cpu")
     with pytest.raises(JxlNotSupportedError, match=f"ROADMAP .*{item}"):
         img.render_frame(img.num_keyframes - 1)
 
 
 def test_every_frame_of_the_cone_is_checked():
     """The envelope reads each frame of the cone, not only the target's
-    header: an upsampled frame before a Blend keyframe raises."""
+    header: a chroma-subsampled YCbCr Modular frame (set by hand) before
+    a Blend keyframe raises."""
     data = blend_stream(True, False, frames=3)
     img = JxlImage.from_bytes(data, device="cpu")
-    img._frames[0].header.upsampling = 2
-    with pytest.raises(JxlNotSupportedError, match="item 9b"):
+    img._frames[0].header.do_ycbcr = True
+    img._frames[0].header.jpeg_upsampling = (0, 1, 0)
+    with pytest.raises(JxlNotSupportedError, match="item 7"):
         img.render_frame(2)
     img._check_envelope([1, 2])
 

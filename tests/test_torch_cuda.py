@@ -529,3 +529,55 @@ def test_flagship_requests_on_cuda(cuda):
         if f"u16_{name}" in refs.files:
             assert tp.max_lsb(r.to_u16(), refs[f"u16_{name}"]) <= \
                 tp.REQUEST_U16_TOL, name
+
+
+# K12 on the shapes of chip_smoke.py's checks: one pixel, W % 16 != 0,
+# partial groups at the right and bottom edges, one group, 2048^2, and the
+# features_up2_1024 field (one 1024^2 group)
+@pytest.mark.parametrize("w,h,gdim", [(1, 1, 128), (17, 5, 128),
+                                      (300, 260, 128), (513, 130, 256),
+                                      (256, 256, 256), (2048, 2048, 256),
+                                      (1024, 1024, 1024)])
+def test_noise_kernel_matches_plain(cuda, w, h, gdim):
+    import numpy as np
+
+    from jxl_oxide_tpu_torch.ops.cuda.noise import noise_field_cuda
+    from jxl_oxide_tpu_torch.ops.noise import noise_field_plain, noise_seed0
+
+    seed0 = noise_seed0(3, 2)
+    before = noise_field_cuda.launches
+    got = noise_field_cuda(w, h, gdim, seed0, cuda)
+    torch.cuda.synchronize()
+    assert noise_field_cuda.launches == before + 1
+    want = noise_field_plain(w, h, gdim, seed0)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  want.view(np.uint32))
+
+
+def test_noise_kernel_refuses_bad_arguments(cuda):
+    from jxl_oxide_tpu_torch.ops.cuda.noise import noise_field_cuda
+
+    for args in ((0, 4, 128, 1), (4, 4, 0, 1), (4, 4, 128, -1),
+                 (4, 4, 128, 1 << 64)):
+        with pytest.raises(ValueError):
+            noise_field_cuda(*args, cuda)
+
+
+@pytest.mark.parametrize("name,k1,k12", tp.FEATURE_FIXTURES)
+def test_feature_fixture_decodes_on_cuda(cuda, name, k1, k12):
+    """The render pipeline's fixtures on the card: within 1 LSB of the
+    reference, the alpha exactly, with their K1 and K12 launches."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.noise import noise_field_cuda
+
+    data, ref = tp.fixture(name)
+    before = epf_step_cuda.launches, noise_field_cuda.launches
+    u8 = JxlImage.from_bytes(data).render_frame(0).to_u8()
+    assert epf_step_cuda.launches - before[0] == k1
+    assert noise_field_cuda.launches - before[1] == k12
+    assert tp.max_lsb(u8, ref) <= 1
+    if u8.shape[-1] == 4:
+        assert np.array_equal(u8[..., 3], ref[..., 3])

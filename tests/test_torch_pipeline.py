@@ -57,3 +57,24 @@ def test_fused_pipeline_constant_cfl_matches_jax():
     key, _, _ = tp.torch_parts(data)
     assert key[1] is True   # cfl_const
     _compare(data)
+
+
+def test_upload_passes_device_tensors_through():
+    """A program input that is a tensor already (an LF frame's planes)
+    stays where it is, beside the packed host arrays; one on another
+    device raises."""
+    import numpy as np
+    import pytest
+    import torch
+
+    from jxl_oxide_tpu_torch.ops.vardct_pipeline import upload_inputs
+
+    lf = torch.arange(6, dtype=torch.float32).reshape(1, 2, 3)
+    host = np.arange(4, dtype=np.int16)
+    pair = (np.arange(3, dtype=np.int32), np.ones(3, dtype=np.int8))
+    out = upload_inputs([host, lf, pair], "cpu")
+    assert out[1] is lf
+    np.testing.assert_array_equal(out[0].numpy(), host)
+    np.testing.assert_array_equal(out[2][0].numpy(), pair[0])
+    with pytest.raises(ValueError):
+        upload_inputs([host, lf.to("meta")], "cpu")

@@ -366,3 +366,63 @@ def test_cropped_single_frames_go_per_image(monkeypatch, change):
     np.testing.assert_array_equal(
         got[max(0, y0):64 + min(0, y0), max(0, x0):64 + min(0, x0)],
         frame_u8[max(0, -y0):64 - max(0, y0), max(0, -x0):64 - max(0, x0)])
+
+
+@pytest.mark.parametrize("change", ["upsampling", "noise", "splines",
+                                    "use_lf_frame", "lf_level",
+                                    "ec_upsampling", "ec_dim_shift"])
+def test_features_and_lf_frames_are_not_stacked(change):
+    """A single-frame VarDCT stream with frame upsampling, noise, splines,
+    an LF frame, or an alpha upsampled (EC upsampling, dim_shift) renders
+    those in the per-image path only; the stacked program would drop
+    them. No in-repo VarDCT encoder writes them, so the parsed header is
+    changed by hand: _host_stage_fast returns None
+    (jxl_oxide_tpu/serving.py:121-125, 146-157)."""
+    import dataclasses
+
+    data = tp.vardct_stream(64, 64, 40, gabor=True, epf_iters=2,
+                            alpha=_alpha(64, 64, 41))
+    img = JxlImage.from_bytes(data, device="cpu")
+    assert serving._host_stage_fast(img, 0) is not None
+    header = img._frames[0].header
+    bits = {"noise": 0x1, "splines": 0x10, "use_lf_frame": 0x20}
+    if change in bits:
+        header.flags = dataclasses.replace(
+            header.flags, value=header.flags.value | bits[change])
+    elif change == "upsampling":
+        header.upsampling = 2
+    elif change == "lf_level":
+        header.lf_level = 1
+    elif change == "ec_upsampling":
+        header.ec_upsampling = [2]
+    else:
+        img.image_header.metadata.ec_info[0].dim_shift = 1
+    assert serving._host_stage_fast(img, 0) is None
+
+
+def _feature_streams():
+    """Three flagship-like VarDCT streams (one program key) between a
+    Modular stream with splines, noise and x2 upsampling (the
+    features_up2_1024 recipe at 64^2) and an LF-frame stream."""
+    from test_torch_features import splines_stream
+
+    flag = [tp.vardct_stream(64, 64, s, gabor=True, epf_iters=2)
+            for s in (42, 43, 44)]
+    return [flag[0], splines_stream(64, 64, 2, noise=True), flag[1],
+            tp.vardct_stream(64, 64, 45, use_lf_frame=True, gabor=True,
+                             epf_iters=2), flag[2]]
+
+
+def test_mixed_feature_batches_equal_per_image(monkeypatch):
+    """decode_batch and decode_batch_stacked over the mix: the flagship
+    streams stack, the feature and LF streams go per image, and every
+    result equals its own render_frame(0).to_u8()."""
+    streams = _feature_streams()
+    per_image = [JxlImage.from_bytes(d, device="cpu").render_frame(0).to_u8()
+                 for d in streams]
+    for got in (decode_batch(streams, num_workers=2, device="cpu"),
+                decode_batch_stacked(streams, num_workers=2, device="cpu")):
+        for a, b in zip(got, per_image):
+            np.testing.assert_array_equal(a, b)
+    stacks, routed = _groups(monkeypatch, streams)
+    assert stacks == [[0, 2, 4]] and routed == [1, 3]

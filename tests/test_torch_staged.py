@@ -264,11 +264,22 @@ def test_staged_u8_within_one_lsb_of_jax(make, cap):
 
 
 def test_lf_override_raises():
-    """LF frames are outside the port: the staged path refuses an LF
-    override instead of decoding without it."""
-    from jxl_oxide_tpu_torch import JxlNotSupportedError
-
-    state, hf_global = tp.torch_host(tp.overflow_stream())
-    state.lf_override = [np.zeros(s, np.float32) for s in state.lf_shapes]
-    with pytest.raises(JxlNotSupportedError, match="item 9"):
-        state._run_staged(hf_global, "cpu")
+    """The staged path under an LF override. Before the port's LF slice it
+    raised rather than decode without the override; now it takes the
+    override (pre-dequantized LF planes: identity scale, no LF CfL, no
+    smoothing) as the JAX package's staged path does, on the same planes,
+    and not the frame's own LF."""
+    rng = np.random.default_rng(5)
+    data = tp.overflow_stream()
+    state, hf_global = tp.torch_host(data)
+    jstate, jhf = tp.jax_host(data)
+    own = [p.clone() for p in state._run_staged(hf_global, "cpu")]
+    override = [(rng.random(s) * 0.2).astype(np.float32)
+                for s in state.lf_shapes]
+    state.lf_override = [torch.from_numpy(p) for p in override]
+    jstate.lf_override = override
+    got = state._run_staged(hf_global, "cpu")
+    want = jstate._run_staged(jhf)
+    for g, w, o in zip(got, want, own):
+        _assert_close(g, w)
+        assert not torch.equal(g, o)

@@ -35,6 +35,12 @@ COLOR_FIXTURES = (("grey_squeeze_2048x1024", False, 2, 1),
                   ("xyb_hdr_1024", False, 2, 0),
                   ("xyb_hdr_peak_256", False, 2, 0),
                   ("icc_p3_512", False, 0, 0))
+# the render pipeline's fixtures: (name, K1 launches, K12 launches) of one
+# decode on the card: splines, noise and x2 upsampling of a filtered
+# 512^2 frame; an LF frame under a filtered 1024^2 frame (the fused path's
+# LF override); a two-level XYB LF chain; an alpha at dim_shift 2
+FEATURE_FIXTURES = (("features_up2_1024", 2, 1), ("lf_frame_1024", 2, 0),
+                    ("lf_chain_xyb_512", 0, 0), ("alpha_shift_512", 0, 0))
 # flagship_1024 under each requested encoding (flagship_1024_requests.npz):
 # the u16 bound of the PQ and HLG renders, in LSB of 65535 (measured on the
 # CPU: 1; chip_smoke.py holds the card's renders to it)

@@ -312,6 +312,52 @@ def icc_p3_512():
                               embed_icc=icc, lz77_rle=True)
 
 
+def feature_splines(seed: int) -> list:
+    """Eight seeded splines across a 1024^2 frame (full-resolution
+    coordinates): four control points each, low-frequency colour DCTs and
+    a narrow constant sigma (sigma_dct[0] = 12: about 3.2 px after the
+    channel weight and quant_adjust 2). With upsampling 2 the planes are
+    512^2 and only what falls in the top-left quarter is drawn
+    (spline.rs:209-218): the last two splines start beyond it."""
+    rng = np.random.default_rng(seed)
+    splines = []
+    for i in range(8):
+        lo, hi = (20, 490) if i < 6 else (530, 1000)
+        pts = [tuple(int(v) for v in rng.integers(lo, hi, 2))]
+        for _ in range(3):
+            x, y = pts[-1]
+            nxt = (int(np.clip(x + rng.integers(-90, 91), lo, hi)),
+                   int(np.clip(y + rng.integers(-90, 91), lo, hi)))
+            pts.append(nxt if nxt != pts[-1] else (nxt[0] + 1, nxt[1]))
+        xyb_dct = np.zeros((3, 32), dtype=np.int64)
+        xyb_dct[:, :3] = rng.integers(-40, 41, (3, 3))
+        xyb_dct[1, 0] = rng.integers(20, 60)
+        sigma_dct = np.zeros(32, dtype=np.int64)
+        sigma_dct[0] = 12
+        splines.append(dict(points=pts, xyb_dct=xyb_dct, sigma_dct=sigma_dct))
+    return splines
+
+
+def features_up2_1024():
+    """The shape of a low-bitrate stream: a 512^2 Modular frame upsampled
+    x2 to 1024^2, gaborish and 2 EPF passes at 512^2, then splines and
+    photon noise at sample resolution, LZ77 runs.
+
+    One 1024^2 group (group_size_shift 3): tools/encoder.py cuts an
+    upsampled frame into groups of the image's size, not the frame's
+    sample size, so with smaller groups its TOC does not match the frame
+    that decoders read (at 256^2 groups both decoders refuse the stream;
+    at 512^2 they misread it). The noise field's groups are the frame's
+    group_dim over the full-resolution frame: one group of 1024^2."""
+    from encoder import encode_jxl_modular
+
+    return encode_jxl_modular(
+        smooth_u8(512, 512, 50), bit_depth=8, image_size=(1024, 1024),
+        upsampling=2, group_size_shift=3, gabor=True, epf_iters=2,
+        noise_lut=[0.2, 0.3, 0.4, 0.5, 0.5, 0.4, 0.3, 0.2],
+        splines_spec=(feature_splines(51), 2), lz77_rle=True)
+
+
 def requested_encodings(image) -> dict:
     """The encodings flagship_1024 is rendered to, name -> ColourEncoding,
     built from `image`, a headers.image module (the JAX package's, or the
@@ -435,6 +481,26 @@ def fixtures() -> dict:
         # the same at 256^2, relative to the display's peak (detect_peak)
         "xyb_hdr_peak_256": lambda: xyb_hdr(256, True),
         "icc_p3_512": icc_p3_512,
+        # the rest of the render pipeline: splines, noise and x2
+        # upsampling of a filtered frame (K1 2, K12 1)
+        "features_up2_1024": features_up2_1024,
+        # an LF frame, then the main frame on its LF: the fused 4:4:4
+        # program with the LF override, gaborish + 2 EPF passes
+        "lf_frame_1024": lambda: encode_jxl_vardct(
+            smooth_rgb(1024, 1024, 52), gabor=True, epf_iters=2,
+            use_lf_frame=True),
+        # a two-level LF chain (an LF frame on an LF frame), XYB
+        "lf_chain_xyb_512": lambda: encode_jxl_vardct(
+            smooth_rgb(512, 512, 53), use_lf_frame=True, lf_levels=2,
+            xyb=True),
+        # an alpha at a quarter of the resolution (dim_shift 2): K10 x4
+        # on the alpha. One 512^2 group: tools/encoder.py lays a shifted
+        # channel out over unshifted groups, which decoders refuse once a
+        # frame has several
+        "alpha_shift_512": lambda: encode_jxl_modular(
+            smooth_u8(512, 512, 54) + [smooth_alpha(128, 128, 55)],
+            bit_depth=8, extra_alpha=True, alpha_dim_shift=2,
+            group_size_shift=2, lz77_rle=True),
     }
 
 
