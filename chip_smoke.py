@@ -112,7 +112,22 @@ Phases, each fatal (non-zero exit, no "ok" line):
      features_up2_1024, K1 2 on lf_frame_1024's main frame); warm medians
      of 5 by span (Splines, Noise, Upsampling and LF frame inside them);
      the FEATURE_TIMED fixtures' K1 passes held and timed as in phase 3,
-     and one traced decode each.
+     and one traced decode each;
+  9. progressive and partial decode (`phase_progressive`): each of
+     PROGRESSIVE (flagship_1024, passes3_1024 with three passes,
+     modular_1024) fed to JxlImage() on the card at the four cuts of its
+     committed <name>_progressive.npz, render_loading_frame().to_u8()
+     after each piece within 1 LSB of the JAX package's loading render
+     there, with the same sections decoded, its K1, K9 and K12 launches
+     counted from 0 just before the render and read just after (K1 2 a
+     render; K9 at least 1 on modular_1024, none elsewhere; K12 none),
+     every K1 pass held within 2e-5 of the plain version and every K9
+     launch bit for bit; the last render equal to the one-shot
+     render_frame(0) on the card bit for bit; the fused programs built
+     during the feed counted; then, warm, median of 5 feeds, each call's
+     latency and its split by span, the feed's sum against one one-shot
+     decode, the last render's K1 passes and K9 launches timed as in
+     phases 3 and 3b, and one traced feed by span and kernel.
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
 The squeeze's are ops/cuda/squeeze_measure.py (the probe among them);
@@ -1631,6 +1646,160 @@ def phase_features(device) -> tuple[dict, dict]:
     return k1_paths, k12_row
 
 
+# the progressive fixtures (phase_progressive): (name, K1 launches and
+# least K9 launches of one loading render on the card); each is fed at
+# the cuts of its <name>_progressive.npz (tools/make_torch_port_fixtures.py
+# `progressive_cuts`: before HfGlobal, half of pass 0, pass 0 or all groups
+# but one, the whole stream)
+PROGRESSIVE = (("flagship_1024", 2, 0), ("passes3_1024", 2, 0),
+               ("modular_1024", 2, 1))
+
+
+def loading_feed(data: bytes, cuts, device, spans: bool = False) -> tuple:
+    """One feed of `data` at `cuts` to a new JxlImage on `device`, with
+    render_loading_frame().to_u8() after each piece: the host ms of each
+    feed_bytes and of each render (to_u8 waits for the card), and with
+    `spans` each render's span totals."""
+    import torch
+
+    from jxl_oxide_tpu_torch import JxlImage
+
+    img = JxlImage(device=device)
+    feed_ms, render_ms, split = [], [], []
+    prev = 0
+    for cut in cuts:
+        t0 = time.perf_counter()
+        img.feed_bytes(data[prev:cut])
+        feed_ms.append((time.perf_counter() - t0) * 1e3)
+        prev = cut
+        torch.cuda.synchronize()
+        with (collecting_spans() if spans
+              else contextlib.nullcontext([])) as got:
+            t0 = time.perf_counter()
+            img.render_loading_frame().to_u8()
+            render_ms.append((time.perf_counter() - t0) * 1e3)
+        split.append(span_totals(got))
+    return feed_ms, render_ms, split
+
+
+def phase_progressive(device, probe: dict) -> tuple[dict, dict]:
+    """Progressive and partial decode on the card (this slice's path):
+    each of PROGRESSIVE fed at its committed cuts through JxlImage() and
+    render_loading_frame, each render held against the JAX package's
+    loading render and its kernels counted and held, the last against the
+    one-shot decode; then warm timings by call and by span, the kernels
+    timed on the last render's inputs, one traced feed. Returns K1's and
+    K9's rows of these paths."""
+    import torch
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda import epf as k1mod
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.noise import noise_field_cuda
+    from jxl_oxide_tpu_torch.render.vardct import VardctFrameState
+
+    k1_paths, k9_paths = {}, {}
+    tdir = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata")
+    for name, k1_want, k9_least in PROGRESSIVE:
+        data, _ = read_fixture(name)
+        ref = np.load(os.path.join(tdir, f"{name}_progressive.npz"))
+        cuts = [int(c) for c in ref["cuts"]]
+
+        # the counted feed: every count from 0 just before each render
+        img = JxlImage()
+        builds = VardctFrameState.program_builds
+        k1_seen, k9_seen, worst = [], [], 0.0
+        prev = 0
+        for k, cut in enumerate(cuts):
+            img.feed_bytes(data[prev:cut])
+            prev = cut
+            eps, sqs = [], []
+            epf_step_cuda.launches = 0
+            sq.inv_squeeze_cuda.launches = 0
+            noise_field_cuda.launches = 0
+            with watching(k1mod, "epf_step_cuda", lambda *a: eps.append(
+                    (a[0].clone(), a[1].clone(), *a[2:]))), \
+                    watching(sq, "inv_squeeze_cuda", lambda *a: sqs.append(
+                        (a[0].clone(), a[1].clone(), a[2]))):
+                u8 = img.render_loading_frame().to_u8()
+            got = (epf_step_cuda.launches, sq.inv_squeeze_cuda.launches,
+                   noise_field_cuda.launches)
+            count = img._frames[0]._progressive_cache.sections_decoded()
+            diff = max_lsb(u8, ref["u8"][k])
+            for args in eps:
+                worst = max(worst, check_kernel(*args))
+            for args in sqs:
+                check_squeeze(*args)
+            log(f"{name} loading render {k} at byte {cut} of {len(data)}: "
+                f"max |u8 - JAX loading render| {diff}, sections {count} "
+                f"(JAX {int(ref['sections'][k])}), K1 launches {got[0]}, K9 "
+                f"{got[1]}, K12 {got[2]}; each K1 pass within "
+                f"{worst:.3g} of plain, each K9 launch equal to plain")
+            if diff > 1 or count != int(ref["sections"][k]):
+                raise AssertionError(f"{name} render {k}: {diff} LSB, "
+                                     f"{count} sections")
+            if (got[0] != k1_want or got[2]
+                    or not (got[1] >= k9_least if k9_least else not got[1])):
+                raise AssertionError(f"{name} render {k}: launches {got}")
+            k1_seen.append((got[0], eps))
+            k9_seen.append((got[1], sqs))
+        builds = VardctFrameState.program_builds - builds
+        one = JxlImage.from_bytes(data).render_frame(0).to_u8()
+        log(f"{name}: last loading render equal to the one-shot decode: "
+            f"{bool(np.array_equal(u8, one))}; fused programs built during "
+            f"the feed {builds}")
+        if not np.array_equal(u8, one):
+            raise AssertionError(f"{name}: last loading render differs from "
+                                 "the one-shot decode")
+
+        # warm: one feed to warm up, then medians of 5, untraced and split
+        loading_feed(data, cuts, device)
+        plain = [loading_feed(data, cuts, device) for _ in range(5)]
+        split = [loading_feed(data, cuts, device, spans=True)
+                 for _ in range(5)]
+        calls = [statistics.median(f[1][k] for f in plain)
+                 for k in range(len(cuts))]
+        feeds = statistics.median(sum(f[0]) for f in plain)
+        total = statistics.median(sum(f[0]) + sum(f[1]) for f in plain)
+        for k in range(len(cuts)):
+            # the split runs' own wall time less their spans: the rest
+            parts = {sp: statistics.median(
+                f[2][k].get(sp, [0.0])[0] for f in split)
+                for sp in SPLIT_SPANS}
+            rest = statistics.median(
+                f[1][k] - sum(f[2][k].get(sp, [0.0])[0] for sp in SPLIT_SPANS)
+                for f in split)
+            log(f"{name} loading render {k} warm, median of 5: "
+                f"{calls[k]:.2f} ms; the same call by span, median of 5: "
+                + ", ".join(f"{sp} {v:.2f}" for sp, v in parts.items())
+                + f", rest (postprocess, readback) {rest:.2f}")
+        one_shot = log_warm_split(
+            f"{name} one-shot", one,
+            lambda: JxlImage.from_bytes(data).render_frame(0).to_u8(),
+            SPLIT_SPANS)["e2e"]
+        log(f"{name}: a whole feed, warm, median of 5: {total:.2f} ms "
+            f"({len(cuts)} renders {sum(calls):.2f} ms, feed_bytes "
+            f"{feeds:.2f} ms) against one one-shot decode "
+            f"{one_shot:.2f} ms: {total / one_shot:.2f}x")
+        profile_run(f"{name} loading feed",
+                    lambda: loading_feed(data, cuts, device),
+                    sum_spans=True)
+
+        n_k1 = sum(n for n, _ in k1_seen)
+        k1_paths[f"{name} loading"] = {
+            "launches": n_k1, "renders": len(cuts), "program_builds": builds,
+            **pass_rows(f"{name} loading", k1_seen[-1][1])}
+        k1_paths[f"{name} loading"]["max_abs_err"] = max(
+            k1_paths[f"{name} loading"]["max_abs_err"], worst)
+        n_k9 = sum(n for n, _ in k9_seen)
+        if n_k9:
+            k9_paths[f"{name} loading"] = {
+                "launches": n_k9, "renders": len(cuts),
+                **squeeze_row(f"{name} loading", k9_seen[-1][1], probe)}
+    return k1_paths, k9_paths
+
+
 def main() -> int:
     try:
         import torch
@@ -1665,6 +1834,8 @@ def main() -> int:
     report["paths"].update(color_k1)
     feature_k1, noise = phase_features(device)
     report["paths"].update(feature_k1)
+    progressive_k1, progressive_k9 = phase_progressive(device, probe)
+    report["paths"].update(progressive_k1)
     report["max_abs_err"] = max([report["max_abs_err"], worst]
                                 + [p["max_abs_err"]
                                    for p in report["paths"].values()])
@@ -1682,7 +1853,8 @@ def main() -> int:
         "max_abs_err": 0,
         "library_ms": None,
         "pyramid": pyramid,
-        "paths": {MODULAR_PATH: squeeze_paths[MODULAR_PATH], **color_k9},
+        "paths": {MODULAR_PATH: squeeze_paths[MODULAR_PATH], **color_k9,
+                  **progressive_k9},
     }
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [report, squeeze, noise]}))

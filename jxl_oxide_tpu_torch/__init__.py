@@ -9,7 +9,10 @@ jxl_oxide_tpu, which stays beside it as the reference.
     JxlImage.from_bytes(data).render_frame(0).to_u8()
 
 decodes on CUDA by default and raises when there is none; pass
-device="cpu" to run the plain torch versions on the CPU.
+device="cpu" to run the plain torch versions on the CPU. A stream fed in
+pieces (JxlImage().feed_bytes(piece)) renders what has arrived through
+render_loading_frame(); Render.stream() writes samples into caller
+buffers.
 decode_batch, decode_iter and decode_batch_stacked (serving.py) decode
 many streams at once; the last runs same-geometry VarDCT streams as one
 stacked program. The envelope: one keyframe, VarDCT (4:4:4 or chroma-

@@ -33,6 +33,13 @@ torch ops on the decode device (color/convert.py), any other profile the
 CMS leg on the host (color/cms.py, Pillow's Little CMS). An alpha
 channel passes through unfiltered, and the render tail applies the EXIF
 orientation (1-8) before the interleave.
+`render_loading_frame()` renders what has arrived of a stream fed in
+pieces (`feed_bytes`): the complete frames composite in order into one
+RenderContext, and the loading frame renders from its complete sections
+through a resumable host stage (render/render.py `partial_host_stage`)
+and the same device stage, then composites without touching the slots.
+`Render.stream()` writes interleaved samples into caller buffers, a row
+band at a time (`ImageStream`).
 Streams outside the envelope raise JxlNotSupportedError naming the
 ROADMAP item that will port them; none decodes through a hidden path.
 """
@@ -76,31 +83,34 @@ from .utils.errors import (
 from .utils.options import use_decode_device
 from .utils.trace import span
 
-__all__ = ["JxlImage", "Render"]
+__all__ = ["ImageStream", "JxlImage", "Render"]
+
+
+# EXIF orientation 1-8 as the flips of the coded plane (1-4) or of its
+# transpose (5-8), on the last two axes
+_ORIENT_FLIPS = {1: (), 2: (-1,), 3: (-2, -1), 4: (-2,), 5: (), 6: (-1,),
+                 7: (-2, -1), 8: (-2,)}
+
+
+def _oriented_rows(plane: torch.Tensor, orientation: int, r0: int,
+                   r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of the oriented plane, cut from the coded plane (or
+    its transpose) before the flips: no whole oriented plane is made."""
+    if orientation not in _ORIENT_FLIPS:
+        raise JxlValidationError(f"invalid orientation {orientation}")
+    src = plane.transpose(-2, -1) if orientation >= 5 else plane
+    flips = _ORIENT_FLIPS[orientation]
+    n = src.shape[-2]
+    band = src[..., n - r1:n - r0, :] if -2 in flips else src[..., r0:r1, :]
+    return band.flip(flips) if flips else band
 
 
 def _apply_orientation(plane: torch.Tensor, orientation: int) -> torch.Tensor:
     """EXIF orientation 1-8 (region.rs apply_orientation; the JAX package's
     api.py _apply_orientation) on the last two axes of [..., H, W], so a
     stack of images turns as one."""
-    if orientation == 1:
-        return plane
-    if orientation == 2:
-        return plane.flip(-1)
-    if orientation == 3:
-        return plane.flip(-2, -1)
-    if orientation == 4:
-        return plane.flip(-2)
-    t = plane.transpose(-2, -1)
-    if orientation == 5:
-        return t
-    if orientation == 6:
-        return t.flip(-1)
-    if orientation == 7:
-        return t.flip(-2, -1)
-    if orientation == 8:
-        return t.flip(-2)
-    raise JxlValidationError(f"invalid orientation {orientation}")
+    rows = plane.shape[-1] if orientation >= 5 else plane.shape[-2]
+    return _oriented_rows(plane, orientation, 0, rows)
 
 
 def _finalize(chans: list, orientation: int, scale: float | None,
@@ -170,9 +180,69 @@ class Render:
                       torch.int32)
         return q.cpu().numpy().astype(np.uint16)
 
-    def stream(self):
-        raise JxlNotSupportedError(
-            "ImageStream is not ported yet (ROADMAP Queue 1 item 9b)")
+    def stream(self) -> "ImageStream":
+        """Interleaved samples, oriented, written into caller buffers a
+        row band at a time (fb.rs:170-398 ImageStream)."""
+        return ImageStream(self)
+
+
+class ImageStream:
+    """Interleaved samples of a Render written into caller buffers
+    (fb.rs ImageStream::write_to_buffer; jxl_oxide_tpu/api.py
+    ImageStream): row-major, x-major, c-minor; colour, then the alpha;
+    oriented; u8, u16 or f32 by the buffer's dtype; resumable across
+    calls. Each call takes from the planes only the row band its samples
+    lie in, quantizes it where the planes are (round half to even,
+    clipped, as the JAX package's numpy does) and brings it to the host:
+    no call downloads a row it does not write, and the whole interleaved
+    image is never built. Spot colours stay outside the port's envelope
+    (ROADMAP Queue 1 item 17)."""
+
+    def __init__(self, render: Render):
+        # every extra channel that has its info (the port's envelope: at
+        # most one, an alpha), as the JAX package zips them
+        self._chans = [*render.planes,
+                       *(ec for _, ec in zip(render.ec_info, render.extra))]
+        self._orientation = render.orientation
+        h, w = self._chans[0].shape
+        self.height, self.width = (w, h) if render.orientation >= 5 else (h, w)
+        self.channels = len(self._chans)
+        self._pos = 0
+
+    def _row_band(self, r0: int, r1: int, scale: float | None) -> np.ndarray:
+        """Interleaved samples of oriented rows [r0, r1), flattened: f32,
+        or quantized to `scale` (u8 or u16 values) before the download."""
+        band = torch.stack([_oriented_rows(c, self._orientation, r0, r1)
+                            for c in self._chans], dim=-1)
+        if scale is None:
+            return band.to(torch.float32).cpu().numpy().reshape(-1)
+        q = torch.clamp(torch.round(band * scale), 0, scale)
+        # no uint16 arithmetic in torch: u16 values travel as int32
+        q = q.to(torch.uint8 if scale == 255.0 else torch.int32)
+        return q.cpu().numpy().reshape(-1)
+
+    def write_to_buffer(self, buf: np.ndarray) -> int:
+        """Fill the 1-D `buf` (uint8, uint16 or float32) with the next
+        samples; returns how many (0 at the end of the image)."""
+        row_samples = self.width * self.channels
+        total = self.height * row_samples
+        n = min(buf.size, total - self._pos)
+        if n <= 0:
+            return 0
+        scale = {np.dtype(np.uint8): 255.0,
+                 np.dtype(np.uint16): 65535.0}.get(buf.dtype)
+        written = 0
+        while written < n:
+            row = self._pos // row_samples
+            off = self._pos - row * row_samples
+            need = n - written
+            r1 = min(self.height, row + -(-(off + need) // row_samples))
+            chunk = self._row_band(row, r1, scale)[off:off + need]
+            take = chunk.size
+            buf[written:written + take] = chunk
+            written += take
+            self._pos += take
+        return n
 
 
 def _not_supported(what: str, item):
@@ -211,6 +281,11 @@ class JxlImage:
         self.requested_icc: bytes | None = None
         # the CMS of ICC legs; constructing it needs no Pillow
         self._cms = PilCms()
+        # render_loading_frame: its context, the frames composited into it,
+        # and the newest keyframe it composited
+        self._progressive_ctx: RenderContext | None = None
+        self._progressive_fed = 0
+        self._progressive_kf: KeyframeRender | None = None
 
     # -- construction (copy of jxl_oxide_tpu/api.py:339-464) ---------------
 
@@ -450,8 +525,8 @@ class JxlImage:
         chroma-subsampled YCbCr (4:2:0, 4:2:2, 4:4:0), or Modular (4:4:4
         YCbCr included) with integer or float samples. Anything else
         raises JxlNotSupportedError naming the ROADMAP item that will port
-        it; progressive and partial decode (item 9b) are other entry
-        points, which raise where they are called."""
+        it. render_loading_frame checks each frame it renders, the loading
+        one too."""
         meta = self.image_header.metadata
         if len(meta.ec_info) > 1 or any(
                 info.ty != ExtraChannelType.ALPHA or info.bit_depth.is_float
@@ -791,6 +866,67 @@ class JxlImage:
             "region-of-interest decode is not ported yet (ROADMAP Queue 1 "
             "item 14)")
 
-    def render_loading_frame(self):
-        raise _not_supported(
-            "progressive and partial decode (render_loading_frame)", "9b")
+    def render_loading_frame(self) -> Render:
+        """What has arrived of the stream, rendered (jxl_oxide_tpu/api.py
+        render_loading_frame; jxl-render/src/lib.rs:723-894). The complete
+        frames composite in order into one RenderContext, once each; a
+        keyframe among them lands in the keyframe cache, so a later
+        render_frame reuses it. The loading frame then renders from its
+        complete sections, each decoded once across calls (its
+        ProgressiveCache, render/vardct.py), on the decode device, and
+        composites without saving a slot. With no frame loading, the
+        newest keyframe is the result. Raises JxlEofError before any frame
+        can render, as the JAX package does.
+
+        A loading frame that sets use_lf_frame renders on its LF slot; the
+        JAX package renders it, and its cached state then renders the
+        complete frame, with no LF (ROADMAP Queue 3). ROI (ROADMAP
+        Queue 1 item 14) and the sharded programs (item 13) stay
+        unported."""
+        if not self._frames:
+            raise JxlEofError("no frame data buffered yet")
+        from .render.vardct import ProgressiveCache
+
+        with use_tracker(self._tracker), use_decode_device(self.device):
+            if self._progressive_ctx is None:
+                self._progressive_ctx = RenderContext(self.image_header,
+                                                      self.device)
+                self._progressive_fed = 0
+            ctx = self._progressive_ctx
+            while self._progressive_fed < len(self._frames):
+                i = self._progressive_fed
+                frame = self._frames[i]
+                if not frame.is_complete:
+                    break
+                self._check_envelope([i])
+                # a frame rendered while it loaded resumes from its cache
+                # there: only the sections not decoded yet decode
+                kf = ctx.add_frame(frame)
+                if kf is not None:
+                    self._progressive_kf = kf
+                    k = self._kf_index_of_frame(i)
+                    if k not in self._keyframe_cache:
+                        track_alloc(self._kf_bytes(kf))
+                        self._cache_store(k, kf)
+                self._progressive_fed += 1
+
+            if self._progressive_fed >= len(self._frames):
+                if self._progressive_kf is None:
+                    raise JxlEofError("no renderable frame data yet")
+                return self._postprocess(self._progressive_kf)
+
+            i = self._progressive_fed
+            frame = self._frames[i]
+            self._check_envelope([i])
+            cache = getattr(frame, "_progressive_cache", None)
+            if cache is None:
+                cache = frame._progressive_cache = ProgressiveCache()
+            # the LF slot of a use_lf_frame frame, which its VarDCT state
+            # takes when it is made (the JAX package's takes none: ROADMAP
+            # Queue 3)
+            ctx._attach_lf_planes(frame)
+            try:
+                fr = render_frame(frame, self.device, cache)
+            finally:
+                frame._lf_frame_planes = None
+            return self._postprocess(ctx.composite_partial(fr, frame))

@@ -670,7 +670,11 @@ def upload_inputs(inputs, device):
     non_blocking=True, and sliced back into typed views on the device.
     uint16 index deltas travel as an int16 view. An input that is a
     tensor already (an LF frame's planes, render/vardct.py) stays where it
-    is; it must be on `device`."""
+    is; it must be on `device`. The arrays are copied into the staging
+    buffer before this returns, so the caller may write into them while
+    the copy to the card is in flight (a loading frame's cached planes
+    take later sections); the caching host allocator keeps the staging
+    block until that copy is done."""
     device = torch.device(device)
     flat = _flatten(inputs)
     for x in flat:

@@ -18,9 +18,9 @@ The feature pass runs on each frame's planes at sample resolution, in
 the reference's order (render.rs render_features): patches, splines,
 noise; then the frame and EC upsampling (render/render.py), then the
 colour transform before blending. LF frames render, upsample and go to
-the LF slot of their level, for the frames that set use_lf_frame. The
-partial composite of a loading frame (progressive decode) belongs to
-ROADMAP Queue 1 item 9b.
+the LF slot of their level, for the frames that set use_lf_frame. A
+loading frame composites through the same steps in `composite_partial`,
+which leaves the slots and the keyframe counters as they are.
 """
 
 from __future__ import annotations
@@ -194,6 +194,7 @@ class RenderContext:
         header = frame.header
         self._attach_lf_planes(frame)
         if fr is None:
+            # a frame that loading renders began resumes from its cache
             fr = render_frame(frame, self.device)
         # the frame object outlives this render: let go of the slot's
         # device planes
@@ -204,24 +205,38 @@ class RenderContext:
                 self.set_lf_frame(header.lf_level - 1, list(fr.color))
             self._frame_counter += 1
             return None
-        with span("Composite"):
-            self._apply_features(fr, frame)
-            apply_frame_upsampling(fr)
-            self._convert_color_for_record(fr, frame)
-            canvas_color, canvas_extra = self._composite(fr, frame)
-            if header.can_reference:
-                # the slot outlives this frame's canvas, which a later
-                # blend or the keyframe cache may hold
-                self.set_reference(header.save_as_reference, (
-                    [p.clone() for p in canvas_color],
-                    [p.clone() for p in canvas_extra],
-                ))
+        kf = self._blend(fr, frame)
+        if header.can_reference:
+            # the slot outlives this frame's canvas, which a later blend or
+            # the keyframe cache may hold
+            self.set_reference(header.save_as_reference, (
+                [p.clone() for p in kf.color], [p.clone() for p in kf.extra]))
         if not header.is_keyframe:
             self._frame_counter += 1
             return None
         self._num_prev_keyframes += 1
         self._last_keyframe_idx = self._frame_counter
         self._frame_counter += 1
+        return kf
+
+    def composite_partial(self, fr: FrameRender, frame) -> KeyframeRender:
+        """Composite a loading (partly decoded) frame through the real
+        blend path, its offsets and BlendingInfo against the saved slots,
+        without saving a slot or counting a keyframe (jxl_oxide_tpu/
+        render/context.py composite_partial; jxl-render/src/lib.rs:723-894,
+        image.rs:788-845)."""
+        return self._blend(fr, frame)
+
+    def _blend(self, fr: FrameRender, frame) -> KeyframeRender:
+        """Features, frame upsampling, the colour transform before
+        blending, then the blend onto the canvas: what a frame adds to the
+        image, with no slot or counter touched."""
+        with span("Composite"):
+            self._apply_features(fr, frame)
+            apply_frame_upsampling(fr)
+            self._convert_color_for_record(fr, frame)
+            canvas_color, canvas_extra = self._composite(fr, frame)
+        header = frame.header
         return KeyframeRender(color=canvas_color, extra=canvas_extra,
                               frame=frame, name=header.name,
                               duration=header.duration, ct_done=fr.ct_done)

@@ -318,25 +318,50 @@ class Frame:
                 sub = pass_groups[pass_idx].get(0) if pass_idx < len(pass_groups) else None
                 self._decode_pass_group(bs, pass_idx, 0, sub, gmodular)
         else:
-            jobs = []
-            for lf_idx in range(header.num_lf_groups):
-                sub = lf_groups.get(lf_idx)
-                entry = self.toc.entry_for("lf_group", lf_idx)
-                jobs.append((self._decode_lf_group, entry, lf_idx, sub))
-            # HfGlobal section must be empty for modular frames (no-op).
-            for pass_idx in range(header.passes.num_passes):
-                for g_idx in range(header.num_groups):
-                    sub = (
-                        pass_groups[pass_idx].get(g_idx)
-                        if pass_idx < len(pass_groups)
-                        else None
-                    )
-                    entry = self.toc.entry_for("group_pass", g_idx, pass_idx)
-                    jobs.append(
-                        (self._decode_pass_group_job, entry, (pass_idx, g_idx), sub)
-                    )
-            self._run_section_jobs(jobs, gmodular)
+            self._run_section_jobs(
+                self._section_jobs(lf_groups, pass_groups), gmodular)
         return modular
+
+    def _section_jobs(self, lf_groups, pass_groups, take=None) -> list:
+        """The section jobs of a multi-section Modular frame: its LF
+        groups, then its pass groups in pass order (the HfGlobal section
+        of a Modular frame is empty); with `take`, only the sections whose
+        key (("lf_group", i) or ("group_pass", g, p)) it takes."""
+        header = self.header
+        jobs = []
+        for lf_idx in range(header.num_lf_groups):
+            if take is None or take(("lf_group", lf_idx)):
+                entry = self.toc.entry_for("lf_group", lf_idx)
+                jobs.append((self._decode_lf_group, entry, lf_idx,
+                             lf_groups.get(lf_idx)))
+        for pass_idx in range(header.passes.num_passes):
+            for g_idx in range(header.num_groups):
+                if take is not None and not take(
+                        ("group_pass", g_idx, pass_idx)):
+                    continue
+                sub = (pass_groups[pass_idx].get(g_idx)
+                       if pass_idx < len(pass_groups) else None)
+                entry = self.toc.entry_for("group_pass", g_idx, pass_idx)
+                jobs.append((self._decode_pass_group_job, entry,
+                             (pass_idx, g_idx), sub))
+        return jobs
+
+    def decode_new_modular_sections(self, cache):
+        """The resumable form of decode_modular_sections for a loading
+        multi-section frame (jxl_oxide_tpu/render/frame.py
+        _decode_modular_progressive): only the sections complete since the
+        last call decode, through `_run_section_jobs`, into the
+        ModularImage of `cache` (a render.vardct.ProgressiveCache, which
+        owns the frame's LfGlobal and group split), returned unfinished.
+        The caller finishes a snapshot, never the image itself."""
+        if self.header.encoding != Encoding.MODULAR:
+            raise ValueError("not a modular frame")
+        gmodular = cache.start(self).gmodular
+        jobs = self._section_jobs(*cache.groups_prepared,
+                                  take=lambda key: cache.take(self, key))
+        if jobs:
+            self._run_section_jobs(jobs, gmodular)
+        return gmodular.modular
 
     def _decode_pass_group_job(self, bs, key, sub, gmodular) -> None:
         pass_idx, g_idx = key

@@ -20,6 +20,13 @@ both paths.
 `render_frame` renders one frame of any kind (keyframe, reference-only,
 cropped) to a FrameRender of frame-sized planes on the device: the host
 entropy stage (`host_stage`), then the device stage (`device_stage`).
+With a ProgressiveCache (render/vardct.py) it renders a loading frame
+(api.py `render_loading_frame`): `partial_host_stage` decodes only the
+sections complete since the last call into the cached state, and the
+device stage runs on what has arrived (missing groups decode as zero
+HF, a missing HfGlobal as pure LF, a Modular frame finishes a snapshot
+of its channels). ROI and the sharded programs stay unported (ROADMAP
+Queue 1 items 14 and 13).
 Colour stays as coded (YCbCr for a YCbCr frame, XYB for an XYB image):
 the colour transform runs at compositing (render/context.py) or at the
 end (api.py `_postprocess`).
@@ -44,8 +51,9 @@ from ..utils.trace import span, traced
 
 __all__ = ["FrameRender", "HostStage", "ModularHostStage",
            "apply_frame_upsampling", "device_stage", "extra_channel_planes",
-           "host_stage", "render_frame", "render_modular_tail",
-           "render_vardct_tail", "upsample_ec_to_color"]
+           "host_stage", "partial_host_stage", "render_frame",
+           "render_modular_tail", "render_vardct_tail",
+           "upsample_ec_to_color"]
 
 
 @dataclass
@@ -78,6 +86,9 @@ class HostStage:
     frame: object
     # the alpha channel's integer samples (numpy), or None
     alpha: np.ndarray | None = None
+    # a loading frame's cached state (`partial_host_stage`): later
+    # sections write into its planes, so the device stage keeps them
+    resumable: bool = False
 
 
 @dataclass
@@ -275,7 +286,12 @@ def host_stage(frame) -> HostStage | ModularHostStage:
 
 
 def _modular_host_stage(fr) -> ModularHostStage:
-    modular = fr.decode_modular_sections()
+    return _host_tail_if_selected(fr.decode_modular_sections(), fr)
+
+
+def _host_tail_if_selected(modular, fr) -> ModularHostStage:
+    """The inverse transforms on the host unless the gate keeps them for
+    the device stage."""
     chans = None
     if not modular.device_tail_selected():
         with span("Modular tail"):
@@ -284,13 +300,7 @@ def _modular_host_stage(fr) -> ModularHostStage:
 
 
 def _vardct_host_stage(fr) -> HostStage:
-    from .vardct import (
-        HfGlobal,
-        VardctFrameState,
-        _decode_lf_groups_batch,
-        _decode_pass_groups_batch,
-        parse_lf_group,
-    )
+    from .vardct import HfGlobal, VardctFrameState, parse_lf_group
 
     header = fr.header
     # each call decodes afresh: a single-section frame reads its groups
@@ -307,9 +317,6 @@ def _vardct_host_stage(fr) -> HostStage:
     else:
         mlf_groups, pass_groups = {}, [{}]
 
-    def sub_of(p, g):
-        return pass_groups[p].get(g) if p < len(pass_groups) else None
-
     state = VardctFrameState(fr)
     if fr.toc.is_single_entry:
         bs = fr._single_bs
@@ -319,39 +326,123 @@ def _vardct_host_stage(fr) -> HostStage:
         hf_global = HfGlobal(bs, fr.image_header, header, lf_global)
         for p in range(header.passes.num_passes):
             state.decode_pass_group_hf(bs, hf_global, p, 0)
-            fr._decode_pass_group(bs, p, 0, sub_of(p, 0), gmod)
+            fr._decode_pass_group(bs, p, 0, _pass_sub(pass_groups, p, 0),
+                                  gmod)
     else:
-        lf_jobs = list(range(header.num_lf_groups))
-        done = _decode_lf_groups_batch(fr, state, lf_global, lf_jobs,
-                                       mlf_groups)
-        for lf_idx in (i for i in lf_jobs if i not in done):
-            bs = Bitstream(
-                fr.section_bytes(fr.toc.entry_for("lf_group", lf_idx))
-            )
-            state.place_lf_group(lf_idx, parse_lf_group(
-                bs, fr.image_header, header, lf_global, lf_idx,
-                mlf_groups.get(lf_idx),
-            ))
-        bs = Bitstream(fr.section_bytes(fr.toc.entry_for("hf_global")))
-        hf_global = HfGlobal(bs, fr.image_header, header, lf_global)
-        by_group: dict[int, list] = {}
-        for p in range(header.passes.num_passes):
-            for g in range(header.num_groups):
-                by_group.setdefault(g, []).append((p, g))
-        leftover = _decode_pass_groups_batch(
-            fr, state, hf_global, by_group, pass_groups, gmod
-        )
-        for jobs in leftover:
-            for p, g in jobs:
-                bs = Bitstream(
-                    fr.section_bytes(fr.toc.entry_for("group_pass", g, p))
-                )
-                state.decode_pass_group_hf(bs, hf_global, p, g)
-                fr._decode_pass_group(bs, p, g, sub_of(p, g), gmod)
+        hf_global = _decode_vardct_sections(fr, state, lf_global,
+                                            (mlf_groups, pass_groups))
     alpha = None
     if modular is not None:
         alpha = modular.finish()[gmod.extra_channel_from]
     return HostStage(state, hf_global, fr, alpha)
+
+
+def _pass_sub(pass_groups, p: int, g: int):
+    return pass_groups[p].get(g) if p < len(pass_groups) else None
+
+
+def _decode_vardct_sections(fr, state, lf_global, groups, hf_global=None,
+                            take=None):
+    """The sections of a multi-section VarDCT frame into `state`, with
+    the native batches: its LF groups, then HfGlobal (unless `hf_global`
+    is given), then its pass groups, each group's passes in order. With
+    `take` (a loading frame's `ProgressiveCache.take`), only the sections
+    it takes, and HfGlobal only once complete. Returns the HfGlobal, or
+    None while it has not arrived (no pass group decodes then)."""
+    from .vardct import (
+        HfGlobal,
+        _decode_lf_groups_batch,
+        _decode_pass_groups_batch,
+        parse_lf_group,
+    )
+
+    header = fr.header
+    gmod = lf_global.gmodular
+    mlf_groups, pass_groups = groups
+    lf_jobs = [i for i in range(header.num_lf_groups)
+               if take is None or take(("lf_group", i))]
+    if lf_jobs:
+        done = _decode_lf_groups_batch(fr, state, lf_global, lf_jobs,
+                                       mlf_groups)
+        for lf_idx in (i for i in lf_jobs if i not in done):
+            bs = Bitstream(
+                fr.section_bytes(fr.toc.entry_for("lf_group", lf_idx)))
+            state.place_lf_group(lf_idx, parse_lf_group(
+                bs, fr.image_header, header, lf_global, lf_idx,
+                mlf_groups.get(lf_idx)))
+        # the bucket plans follow the LF groups present
+        state._bucket_cache = {}
+    if hf_global is None and (take is None
+                              or fr.section_complete("hf_global")):
+        bs = Bitstream(fr.section_bytes(fr.toc.entry_for("hf_global")))
+        hf_global = HfGlobal(bs, fr.image_header, header, lf_global)
+    if hf_global is None:
+        return None
+    by_group: dict[int, list] = {}
+    for g in range(header.num_groups):
+        # a pass group needs its LF group's varblock grid, and the passes
+        # of a group add up in order: each is taken after the one before
+        after = ("lf_group", header.lf_group_idx_from_group_idx(g))
+        for p in range(header.passes.num_passes):
+            key = ("group_pass", g, p)
+            if take is None or take(key, after):
+                by_group.setdefault(g, []).append((p, g))
+            after = key
+    leftover = _decode_pass_groups_batch(
+        fr, state, hf_global, by_group, pass_groups, gmod) if by_group else []
+    for jobs in leftover:
+        for p, g in jobs:
+            bs = Bitstream(
+                fr.section_bytes(fr.toc.entry_for("group_pass", g, p)))
+            state.decode_pass_group_hf(bs, hf_global, p, g)
+            fr._decode_pass_group(bs, p, g, _pass_sub(pass_groups, p, g),
+                                  gmod)
+    return hf_global
+
+
+def partial_host_stage(frame, cache) -> HostStage | ModularHostStage:
+    """The host stage of a loading frame, resumable through `cache` (a
+    render.vardct.ProgressiveCache, which parses the frame's LfGlobal once
+    and keeps it); each call decodes only the sections complete since the
+    last (jxl_oxide_tpu/render/vardct.py _decode_vardct_progressive,
+    render/frame.py _decode_modular_progressive). A single-section frame
+    takes the one-shot `host_stage`, which raises JxlEofError until the
+    frame is complete (the JAX package's gate, `cache is not None and not
+    frame.toc.is_single_entry`)."""
+    if frame.toc.is_single_entry:
+        return host_stage(frame)
+    return _resumable_host_stage(frame, cache)
+
+
+@traced("Host entropy stage")
+def _resumable_host_stage(frame, cache) -> HostStage | ModularHostStage:
+    if frame.header.encoding == Encoding.MODULAR:
+        # the render finishes a copy: the decoded buffers stay as they
+        # are for the sections to come (its device tail uploads the copy)
+        return _host_tail_if_selected(
+            frame.decode_new_modular_sections(cache).snapshot(), frame)
+    return _vardct_resumable_host_stage(frame, cache)
+
+
+def _vardct_resumable_host_stage(fr, cache) -> HostStage:
+    """The new sections of a loading VarDCT frame into the cached state
+    (`_decode_vardct_sections` with the cache's `take`). A section that is
+    not complete is skipped and decodes on a later call."""
+    from .vardct import VardctFrameState
+
+    lf_global = cache.start(fr)
+    if cache.vardct_state is None:
+        cache.vardct_state = VardctFrameState(fr)
+    cache.hf_global = _decode_vardct_sections(
+        fr, cache.vardct_state, lf_global, cache.groups_prepared,
+        cache.hf_global, lambda key, after=None: cache.take(fr, key, after))
+    gmod = lf_global.gmodular
+    alpha = None
+    if gmod.modular is not None:
+        # finish a copy, so that later sections decode into the original
+        alpha = gmod.modular.snapshot().finish()[gmod.extra_channel_from]
+    return HostStage(cache.vardct_state, cache.hf_global, fr, alpha,
+                     resumable=True)
 
 
 @traced("Frame device stage")
@@ -376,19 +467,47 @@ def device_stage(host, device) -> FrameRender:
 
         state = host.state
         color = decode_vardct_planes(state, host.hf_global, device)
-        state.trim_coeff_planes()
+        if not host.resumable:
+            # a cached state's planes still take later sections: handing
+            # them to the plane pool now would let another decode zero
+            # and fill them
+            state.trim_coeff_planes()
         color = render_vardct_tail(state, color)
         extra = [] if host.alpha is None else extra_channel_planes(
             [host.alpha], meta.ec_info, color[0].device)
     return FrameRender(color=list(color), extra=list(extra), frame=frame)
 
 
-def render_frame(frame, device) -> FrameRender:
+def render_frame(frame, device, cache=None) -> FrameRender:
     """Decode and filter one frame on `device` (jxl_oxide_tpu/render/
     render.py render_frame): planes at the frame's sample size, before
-    blending and before the colour transform."""
+    blending and before the colour transform. With `cache` (a
+    render.vardct.ProgressiveCache), from what has arrived of the frame
+    (`partial_host_stage`). Without one, a complete frame that loading
+    renders began resumes from the cache they left (`resume_cache`, as
+    the JAX package's add_frame and cone pass the frame's cache). A
+    complete frame releases the cache it rendered from."""
+    if cache is None:
+        cache = resume_cache(frame)
     with use_decode_device(device):
-        return device_stage(host_stage(frame), device)
+        if cache is None:
+            return device_stage(host_stage(frame), device)
+        fr = device_stage(partial_host_stage(frame, cache), device)
+        if frame.is_complete:
+            # no section is left to land in the cached planes
+            cache.release()
+        return fr
+
+
+def resume_cache(frame):
+    """The ProgressiveCache a complete frame resumes from: the one its
+    loading renders left, until released. Only the sections not yet
+    decoded then decode. An incomplete frame gets none: its render_frame
+    raises as before instead of rendering a partial keyframe."""
+    cache = getattr(frame, "_progressive_cache", None)
+    if cache is None or cache.released or not frame.is_complete:
+        return None
+    return cache
 
 
 def _ec_factor(header, meta, i: int) -> int:

@@ -18,8 +18,11 @@ package does:
     tail (render/render.py) then upsamples and filters.
 A frame that sets use_lf_frame takes the planes of its LF frame (device
 tensors, `lf_override`) as its pre-dequantized LF on the fused 4:4:4 and
-staged paths, edge-padded on their device. The sharded, ROI and
-progressive paths are not ported yet (ROADMAP Queue 1 items 9b, 13 and
+staged paths, edge-padded on their device. A loading frame keeps its
+VarDCT state in a `ProgressiveCache` between renders (render/render.py
+`partial_host_stage`): the planes stay with the state until the frame is
+complete, and each render runs the device pipeline on them again. The
+sharded and ROI paths are not ported yet (ROADMAP Queue 1 items 13 and
 14).
 """
 
@@ -43,7 +46,7 @@ from ..models.vardct import (
 )
 from ..utils.trace import span, traced
 
-__all__ = ["HfGlobal", "LfGroup", "VardctFrameState"]
+__all__ = ["HfGlobal", "LfGroup", "ProgressiveCache", "VardctFrameState"]
 
 
 # Cap on dense transform-plan entries (each entry is a full-plane pass;
@@ -738,17 +741,24 @@ class VardctFrameState:
         frame sample size from the fused 4:4:4 program, at full
         resolution (still YCbCr) from the fused subsampled one, at the
         shifted rounded plane sizes from the staged path. The flags
-        filters_applied and chroma_upsampled say which.
+        filters_applied and chroma_upsampled say which; both are reset
+        first, since a cached loading frame's state runs this again and
+        may take another path as its plan grows.
 
         Subsampled frames never carry adaptive LF smoothing (rejected at
         FrameHeader.parse) or an LF-frame override (jpeg_upsampling is only
         coded when !use_lf_frame, header.rs:25)."""
+        self.filters_applied = False
+        self.chroma_upsampled = False
         if not self.subsampled:
             return self._run_fused(hf_global, device)
         assert self.lf_override is None
         return self._run_fused_subsampled(hf_global, device)
 
     _fused_cache: dict = {}
+    # programs built by `program` since import (a loading frame's key can
+    # change as its LF groups arrive; chip_smoke.py counts a feed's builds)
+    program_builds = 0
 
     @classmethod
     def program(cls, key, make_fn, device):
@@ -759,6 +769,7 @@ class VardctFrameState:
         fn = cls._fused_cache.get(dev_key)
         if fn is None:
             fn = make_fn(device)
+            VardctFrameState.program_builds += 1
             if len(cls._fused_cache) > 32:
                 cls._fused_cache.clear()
             cls._fused_cache[dev_key] = fn
@@ -1317,6 +1328,63 @@ class VardctFrameState:
             out.append(transform_buckets(coeffs[c], lf_planes[c], out_plane,
                                          buckets[c]))
         return out
+
+
+class ProgressiveCache:
+    """A loading frame's decode state kept across render_loading_frame
+    calls (jxl_oxide_tpu/render/vardct.py ProgressiveCache; the
+    reference's RenderCache, jxl-render/src/state.rs:17-44): each TOC
+    section decodes once, when it is complete. `done` holds the decoded
+    sections as ("lf_group", i) and ("group_pass", g, p), as the JAX
+    package counts them (HfGlobal is kept, not counted). One class serves
+    VarDCT frames (`vardct_state`, `hf_global`) and Modular frames (whose
+    ModularImage stays on `lf_global`). The cache owns its LfGlobal,
+    parsed afresh when it starts: a one-shot decode of the same frame
+    parses and finishes its own, never this one."""
+
+    def __init__(self):
+        self.lf_global = None
+        self.vardct_state: VardctFrameState | None = None
+        self.hf_global: HfGlobal | None = None
+        self.done: set = set()
+        self.groups_prepared = None  # (mlf_groups, pass_groups)
+        self.released = False
+
+    def start(self, frame):
+        """The cache's LfGlobal, parsed on the first call, and its group
+        split."""
+        if self.lf_global is None:
+            frame.lf_global = None
+            self.lf_global = frame.parse_lf_global()
+            modular = self.lf_global.gmodular.modular
+            self.groups_prepared = (modular.prepare_groups(frame.pass_shifts)
+                                    if modular is not None else ({}, [{}]))
+        return self.lf_global
+
+    def take(self, frame, key, after=None) -> bool:
+        """Whether section `key` decodes now: it is complete, not decoded
+        yet, and the section `after` (if any) is decoded. A section taken
+        counts as decoded."""
+        if (key in self.done or not frame.section_complete(*key)
+                or (after is not None and after not in self.done)):
+            return False
+        self.done.add(key)
+        return True
+
+    def sections_decoded(self) -> int:
+        return len(self.done)
+
+    def release(self) -> None:
+        """Let go of the state once the complete frame has rendered from
+        it: no later section writes into its planes, so they may go back
+        to the plane pool. The count stays; the cache renders no more."""
+        if self.vardct_state is not None:
+            self.vardct_state.trim_coeff_planes()
+        self.lf_global = None
+        self.vardct_state = None
+        self.hf_global = None
+        self.groups_prepared = None
+        self.released = True
 
 
 @traced("Render VarDCT")

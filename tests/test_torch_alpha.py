@@ -179,5 +179,8 @@ def test_not_ported_outputs_name_their_items():
     img = JxlImage.from_bytes(data, device="cpu")
     with pytest.raises(JxlNotSupportedError, match="item 14"):
         img.render_frame_cropped((0, 0, 8, 8))
-    with pytest.raises(JxlNotSupportedError, match="item 9"):
-        img.render_frame(0).stream()
+    # Render.stream (item 9b) is ported: its samples are to_u8()'s
+    want = img.render_frame(0).to_u8().reshape(-1)
+    buf = np.zeros(want.size, np.uint8)
+    assert img.render_frame(0).stream().write_to_buffer(buf) == want.size
+    np.testing.assert_array_equal(buf, want)

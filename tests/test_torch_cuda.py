@@ -581,3 +581,55 @@ def test_feature_fixture_decodes_on_cuda(cuda, name, k1, k12):
     assert tp.max_lsb(u8, ref) <= 1
     if u8.shape[-1] == 4:
         assert np.array_equal(u8[..., 3], ref[..., 3])
+
+
+@pytest.mark.parametrize("name,k1,k9", tp.PROGRESSIVE_FIXTURES)
+def test_loading_renders_on_cuda(cuda, name, k1, k9):
+    """A stream fed in pieces (the cuts of <name>_progressive.npz) renders
+    on the card within 1 LSB of the same feed on the CPU and of the JAX
+    package's committed loading render, with K1's launches per render
+    and K9's (at least k9, none where k9 is 0); the last render is the
+    card's one-shot decode bit for bit."""
+    import os
+
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze import inv_squeeze_cuda
+
+    data, _ = tp.fixture(name)
+    ref = np.load(os.path.join(tp.TESTDATA, f"{name}_progressive.npz"))
+    card, host = JxlImage(device=cuda), JxlImage(device="cpu")
+    prev = 0
+    for k, cut in enumerate(ref["cuts"]):
+        for img in (card, host):
+            img.feed_bytes(data[prev:cut])
+        prev = cut
+        before = epf_step_cuda.launches, inv_squeeze_cuda.launches
+        u8 = card.render_loading_frame().to_u8()
+        launches = (epf_step_cuda.launches - before[0],
+                    inv_squeeze_cuda.launches - before[1])
+        assert launches[0] == k1, (k, launches)
+        assert launches[1] >= k9 if k9 else launches[1] == 0, (k, launches)
+        assert tp.max_lsb(u8, host.render_loading_frame().to_u8()) <= 1
+        assert tp.max_lsb(u8, ref["u8"][k]) <= 1, k
+    one = JxlImage.from_bytes(data, device=cuda).render_frame(0).to_u8()
+    assert np.array_equal(u8, one)
+
+
+def test_image_stream_on_cuda(cuda):
+    """Render.stream over planes on the card: its u8 and u16 samples are
+    to_u8() and to_u16() flattened, row bands downloaded one call at a
+    time."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage
+
+    data, _ = tp.fixture("orient6_512x384")
+    r = JxlImage.from_bytes(data, device=cuda).render_frame(0)
+    for dtype, want in ((np.uint8, r.to_u8()), (np.uint16, r.to_u16())):
+        stream, buf, out = r.stream(), np.zeros(4099, dtype), []
+        while (n := stream.write_to_buffer(buf)):
+            out.append(buf[:n].copy())
+        assert np.array_equal(np.concatenate(out), want.reshape(-1))

@@ -178,13 +178,20 @@ def test_lf_frame_1024_fixture():
 
 
 def test_progressive_and_partial_decode_still_raise():
-    """Progressive and partial decode are the next slice (ROADMAP Queue 1
-    item 9b): render_loading_frame and Render.stream raise naming it."""
+    """Progressive and partial decode (ROADMAP Queue 1 item 9b) are ported
+    since the eighth slice (tests/test_torch_progressive.py): on an LF
+    stream render_loading_frame composites the LF frame into its slot
+    and renders the main frame on it, as render_frame does, and
+    Render.stream writes its samples. ROI still raises, naming item
+    14."""
     from jxl_oxide_tpu_torch import JxlNotSupportedError
 
     img = JxlImage.from_bytes(lf_stream(LF_KWARGS[0], seed=35),
                               device="cpu")
-    with pytest.raises(JxlNotSupportedError, match="ROADMAP .*item 9b"):
-        img.render_loading_frame()
-    with pytest.raises(JxlNotSupportedError, match="ROADMAP .*item 9b"):
-        img.render_frame(0).stream()
+    loading = img.render_loading_frame().to_u8()
+    np.testing.assert_array_equal(loading, img.render_frame(0).to_u8())
+    buf = np.zeros(loading.size, np.uint8)
+    assert img.render_frame(0).stream().write_to_buffer(buf) == buf.size
+    np.testing.assert_array_equal(buf, loading.reshape(-1))
+    with pytest.raises(JxlNotSupportedError, match="ROADMAP .*item 14"):
+        img.render_frame_cropped(0, (0, 0, 8, 8))

@@ -41,6 +41,10 @@ COLOR_FIXTURES = (("grey_squeeze_2048x1024", False, 2, 1),
 # LF override); a two-level XYB LF chain; an alpha at dim_shift 2
 FEATURE_FIXTURES = (("features_up2_1024", 2, 1), ("lf_frame_1024", 2, 0),
                     ("lf_chain_xyb_512", 0, 0), ("alpha_shift_512", 0, 0))
+# the progressive fixtures: (name, K1 launches, least K9 launches) of one
+# loading render on the card, fed at the cuts of <name>_progressive.npz
+PROGRESSIVE_FIXTURES = (("flagship_1024", 2, 0), ("passes3_1024", 2, 0),
+                        ("modular_1024", 2, 1))
 # flagship_1024 under each requested encoding (flagship_1024_requests.npz):
 # the u16 bound of the PQ and HLG renders, in LSB of 65535 (measured on the
 # CPU: 1; chip_smoke.py holds the card's renders to it)

@@ -16,6 +16,14 @@ testdata/:
                REQUESTS (request_color_encoding): "u8_<name>" for each,
                "u16_<name>" for the HDR ones (REQUESTS_U16); written with
                the name "flagship_1024_requests"
+  <name>_progressive.npz
+               for each of PROGRESSIVE, the stream fed to one
+               jxl_oxide_tpu JxlImage up to each of four cuts from its
+               frame's TOC (`progressive_cuts`), with the loading render
+               after each: "cuts" (byte offsets in the .jxl), "u8"
+               [4, H, W, C] (render_loading_frame().to_u8()) and
+               "sections" (its ProgressiveCache's sections_decoded());
+               written with the name "<name>_progressive"
 
 The port's chip smoke test and its CPU tests decode the .jxl files with
 jxl_oxide_tpu_torch and compare with the .npz references; a machine
@@ -401,6 +409,55 @@ def write_requests() -> None:
           + ", ".join(f"{k} {v.shape}" for k, v in out.items()))
 
 
+# the streams whose loading renders are committed (<name>_progressive.npz)
+PROGRESSIVE = ("flagship_1024", "passes3_1024", "modular_1024")
+
+
+def progressive_cuts(frame) -> list[int]:
+    """Four byte offsets into a one-frame bare codestream, from its frame's
+    TOC (`frame` is either package's Frame): the end of the last LF group
+    (before HfGlobal: a pure-LF render of a VarDCT frame); HfGlobal and
+    the first half of pass 0's groups; the end of pass 0 with several
+    passes, else all groups but the last; the whole stream."""
+    header, toc = frame.header, frame.toc
+    groups = header.num_groups
+
+    def end(kind, *index):
+        e = toc.entry_for(kind, *index)
+        return frame.start_byte + e.offset + e.size
+
+    third = (end("group_pass", groups - 1, 0) if header.passes.num_passes > 1
+             else end("group_pass", groups - 2, 0))
+    return [end("lf_group", header.num_lf_groups - 1),
+            end("group_pass", groups // 2 - 1, 0), third,
+            frame.start_byte + frame.total_bytes]
+
+
+def write_progressive(name: str) -> None:
+    """<name>_progressive.npz from the committed <name>.jxl: the JAX
+    package's loading render at each of progressive_cuts, fed in order to
+    one JxlImage."""
+    from jxl_oxide_tpu import JxlImage
+
+    with open(os.path.join(OUT_DIR, f"{name}.jxl"), "rb") as f:
+        data = f.read()
+    assert data[:2] == b"\xff\x0a", "a bare codestream"
+    cuts = progressive_cuts(JxlImage.from_bytes(data)._frames[0])
+    img = JxlImage()
+    u8, sections = [], []
+    prev = 0
+    for cut in cuts:
+        img.feed_bytes(data[prev:cut])
+        prev = cut
+        u8.append(img.render_loading_frame().to_u8())
+        sections.append(img._frames[0]._progressive_cache.sections_decoded())
+    np.savez_compressed(
+        os.path.join(OUT_DIR, f"{name}_progressive.npz"),
+        cuts=np.asarray(cuts, np.int64), u8=np.stack(u8),
+        sections=np.asarray(sections, np.int64))
+    print(f"{name}_progressive: cuts {cuts}, sections {sections}")
+
+
 def fixtures() -> dict:
     """name -> a function that makes the stream."""
     from encoder import encode_jxl_modular
@@ -410,6 +467,12 @@ def fixtures() -> dict:
         # the flagship stream (bench.py:385-387)
         "flagship_1024": lambda: encode_jxl_vardct(
             smooth_rgb(1024, 1024, seed=9), gabor=True, epf_iters=2),
+        # a progressive stream: three passes (HF coefficients shifted by 2,
+        # then 1, then none), gaborish + 2 EPF passes, 16 groups
+        "passes3_1024": lambda: encode_jxl_vardct(
+            smooth_rgb(1024, 1024, 56), gabor=True, epf_iters=2,
+            num_passes=3, pass_shifts=[2, 1],
+            pass_downsample=[(4, 0), (2, 1)]),
         # bench.py vardct_epf3: 3 EPF passes, step 0 included
         "epf3_512": lambda: encode_jxl_vardct(smooth_rgb(512, 512, 2),
                                               epf_iters=3),
@@ -521,9 +584,13 @@ def main(names) -> None:
     carry the time they were written, so rewrite only what changed."""
     os.makedirs(OUT_DIR, exist_ok=True)
     makers = fixtures()
-    for name in names or [*makers, "flagship_1024_requests"]:
+    for name in names or [*makers, "flagship_1024_requests",
+                          *(f"{n}_progressive" for n in PROGRESSIVE)]:
         if name == "flagship_1024_requests":
             write_requests()
+            continue
+        if name.endswith("_progressive"):
+            write_progressive(name[:-len("_progressive")])
             continue
         data = makers[name]()
         with open(os.path.join(OUT_DIR, f"{name}.jxl"), "wb") as f:
