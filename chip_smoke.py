@@ -127,7 +127,27 @@ Phases, each fatal (non-zero exit, no "ok" line):
      during the feed counted; then, warm, median of 5 feeds, each call's
      latency and its split by span, the feed's sum against one one-shot
      decode, the last render's K1 passes and K9 launches timed as in
-     phases 3 and 3b, and one traced feed by span and kernel.
+     phases 3 and 3b, and one traced feed by span and kernel;
+ 10. every extra-channel kind (`phase_extra_channels`): each of
+     EC_FIXTURES (ec_mix_1024: an alpha, a spot colour, an f16 alpha and
+     a depth channel through the squeeze on the device tail;
+     ec_blend_premul_512: three frames blended over an associated alpha,
+     alpha channel 1) rendered keyframe by keyframe with its K1, K9 and
+     K12 launches counted from 0 for that run alone (K1 2 and K9 1;
+     K1 6), u8 within 1 LSB of its reference, alphas exactly, every extra
+     channel bit for bit; each launch held against its plain version and
+     timed as in phases 3 and 3b; warm medians of 5 by span, one traced
+     run;
+ 11. region-of-interest decode (`phase_roi`): each region of each of
+     ROI_FIXTURES' <name>_roi.npz through render_frame_cropped on a
+     fresh image, its launches counted from 0 for that render alone,
+     within 1 LSB of the JAX package's region render and equal to the
+     crop of the card's full render, and set_image_region +
+     render_frame equal to it; the device rect the fused program computed
+     and K1's plane shape on it logged, each launch held and timed; the
+     warm region render against the full render, by span;
+     flagship_1024's loading render with a region set against its
+     reference.
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
 The squeeze's are ops/cuda/squeeze_measure.py (the probe among them);
@@ -1800,6 +1820,205 @@ def phase_progressive(device, probe: dict) -> tuple[dict, dict]:
     return k1_paths, k9_paths
 
 
+# the extra-channel fixtures (phase_extra_channels): (name, K1 and K9
+# launches of rendering every keyframe in order on the card, keyframes);
+# ec_mix_1024's squeeze runs on the device tail with an f16 alpha beside
+# it, ec_blend_premul_512 blends over an associated alpha
+EC_FIXTURES = (("ec_mix_1024", 2, 1, 1), ("ec_blend_premul_512", 6, 0, 3))
+
+
+def render_all(data: bytes) -> list:
+    """Every keyframe of `data` on the card, in order: (to_u8(),
+    image_all_channels()) of each."""
+    from jxl_oxide_tpu_torch import JxlImage
+
+    img = JxlImage.from_bytes(data)
+    renders = [img.render_frame(k) for k in range(img.num_keyframes)]
+    return [(r.to_u8(), r.image_all_channels()) for r in renders]
+
+
+@contextlib.contextmanager
+def capturing_kernels():
+    """Within the block, K1's and K9's launches with their inputs copied
+    (each launch still goes through its counted wrapper): two lists of
+    argument tuples, as check_kernel and check_squeeze take them."""
+    from jxl_oxide_tpu_torch.ops.cuda import epf as k1mod
+    from jxl_oxide_tpu_torch.ops.cuda import squeeze as sq
+
+    eps, sqs = [], []
+    with watching(k1mod, "epf_step_cuda", lambda *a: eps.append(
+            (a[0].clone(), a[1].clone(), *a[2:]))), \
+            watching(sq, "inv_squeeze_cuda", lambda *a: sqs.append(
+                (a[0].clone(), a[1].clone(), a[2]))):
+        yield eps, sqs
+
+
+def reset_counts() -> None:
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.noise import noise_field_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze import inv_squeeze_cuda
+
+    epf_step_cuda.launches = 0
+    inv_squeeze_cuda.launches = 0
+    noise_field_cuda.launches = 0
+
+
+def read_counts() -> tuple:
+    """(K1, K9, K12) launches since reset_counts."""
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.noise import noise_field_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze import inv_squeeze_cuda
+
+    return (epf_step_cuda.launches, inv_squeeze_cuda.launches,
+            noise_field_cuda.launches)
+
+
+def phase_extra_channels(device, probe: dict) -> tuple[dict, dict]:
+    """Every extra-channel kind on the card (this slice's first path): each
+    of EC_FIXTURES rendered, every keyframe in order, through
+    render_frame(k) with its K1, K9 and K12 launches counted from 0 just
+    before and read just after; each u8 within 1 LSB of its reference
+    (alphas exactly, spot colours applied), every extra channel of
+    image_all_channels() bit for bit (ec_mix_1024's f16 alpha out of the
+    device tail among them); each K1 launch within EPF_ATOL of the plain
+    version and each K9 launch bit for bit; warm medians of 5 by span,
+    one traced decode, the launches timed as in phases 3 and 3b. Returns
+    K1's and K9's rows of these paths."""
+    k1_paths, k9_paths = {}, {}
+    tdir = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata")
+    for name, k1_want, k9_want, keyframes in EC_FIXTURES:
+        data, u8_ref = read_fixture(name)
+        extra_ref = np.load(os.path.join(tdir, f"{name}.npz"))["extra"]
+        if keyframes == 1:
+            u8_ref, extra_ref = u8_ref[None], extra_ref[None]
+        reset_counts()
+        with capturing_kernels() as (eps, sqs):
+            outs = render_all(data)
+        got = read_counts()
+        if len(outs) != keyframes:
+            raise AssertionError(f"{name}: {len(outs)} keyframes")
+        for k, (u8, allc) in enumerate(outs):
+            diff = max_lsb(u8, u8_ref[k])
+            ec_equal = [bool(np.array_equal(allc[..., 3 + e],
+                                            extra_ref[k][..., e]))
+                        for e in range(extra_ref.shape[-1])]
+            log(f"{name} keyframe {k}: {u8.shape}, max |u8 - reference| "
+                f"{diff}, alpha exact {alpha_exact(u8, u8_ref[k])}, extra "
+                f"channels equal to the reference {ec_equal}")
+            if diff > 1 or not alpha_exact(u8, u8_ref[k]) or not all(
+                    ec_equal):
+                raise AssertionError(f"{name} keyframe {k} differs")
+        worst = max([check_kernel(*a) for a in eps], default=0.0)
+        for a in sqs:
+            check_squeeze(*a)
+        log(f"{name}: K1 launches {got[0]}, K9 {got[1]}, K12 {got[2]} "
+            f"(wanted {k1_want}, {k9_want}, 0); each K1 launch within "
+            f"{worst:.3g} of plain, each K9 launch equal to plain")
+        if got != (k1_want, k9_want, 0):
+            raise AssertionError(f"{name}: launches {got}")
+        log_warm_split(name, outs[-1][0], lambda: render_all(data),
+                       SPLIT_SPANS)
+        profile_run(name, lambda: render_all(data), sum_spans=True)
+        k1_paths[name] = {"launches": got[0], **pass_rows(name, eps)}
+        k1_paths[name]["max_abs_err"] = max(k1_paths[name]["max_abs_err"],
+                                            worst)
+        if sqs:
+            k9_paths[name] = {"launches": got[1],
+                              **squeeze_row(name, sqs, probe)}
+    return k1_paths, k9_paths
+
+
+# the fixtures whose region renders are committed (<name>_roi.npz,
+# phase_roi)
+ROI_FIXTURES = ("flagship_1024", "ycbcr420_1024", "orient6_512x384",
+                "modular_1024")
+
+
+def phase_roi(device, probe: dict) -> tuple[dict, dict]:
+    """Region-of-interest decode on the card (this slice's second path):
+    for each of ROI_FIXTURES and each region of its <name>_roi.npz,
+    render_frame_cropped(0, region).to_u8() on a fresh image, its K1, K9
+    and K12 launches counted from 0 just before and read just after, held
+    within 1 LSB of the JAX package's region render and equal to the crop
+    of the card's full render; set_image_region(*region) and
+    render_frame(0) equal to it; the rect the fused program computed
+    (render/roi.py device_rect) and K1's plane shape logged; each K1
+    launch held against the plain version and timed (phase 3); warm
+    medians of 5 of the region render beside the full render, split by
+    span. flagship_1024's loading render with a region set against its
+    reference. Returns K1's and K9's rows of these paths."""
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.render.vardct import VardctFrameState
+
+    k1_paths, k9_paths = {}, {}
+    tdir = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata")
+    for name in ROI_FIXTURES:
+        data, _ = read_fixture(name)
+        ref = np.load(os.path.join(tdir, f"{name}_roi.npz"))
+        full = JxlImage.from_bytes(data).render_frame(0).to_u8()
+        full_ms = log_warm_split(
+            f"{name} full", full,
+            lambda: JxlImage.from_bytes(data).render_frame(0).to_u8(),
+            SPLIT_SPANS)["e2e"]
+        for r, region in enumerate(ref["regions"].tolist()):
+            label = f"{name} region {tuple(region)}"
+            rects = []
+            reset_counts()
+            with capturing_kernels() as (eps, sqs), watching(
+                    VardctFrameState, "run_device_pipeline",
+                    lambda *a: rects.append(a[3] if len(a) > 3 else None)):
+                u8 = JxlImage.from_bytes(data).render_frame_cropped(
+                    0, region).to_u8()
+            got = read_counts()
+            left, top, w, h = region
+            crop = full[top:top + h, left:left + w]
+            img = JxlImage.from_bytes(data)
+            img.set_image_region(*region)
+            again = img.render_frame(0).to_u8()
+            diff = max_lsb(u8, ref[f"u8_{r}"])
+            worst = max([check_kernel(*a) for a in eps], default=0.0)
+            for a in sqs:
+                check_squeeze(*a)
+            log(f"{label}: {u8.shape}, max |u8 - JAX region render| {diff}, "
+                f"equal to the crop of the full render "
+                f"{bool(np.array_equal(u8, crop))}, set_image_region + "
+                f"render_frame equal {bool(np.array_equal(again, u8))}; "
+                f"device rect {rects} (K1 planes "
+                f"{[tuple(a[0].shape) for a in eps]}); launches K1 "
+                f"{got[0]}, K9 {got[1]}, K12 {got[2]}; each K1 launch "
+                f"within {worst:.3g} of plain")
+            if (diff > 1 or not np.array_equal(u8, crop)
+                    or not np.array_equal(again, u8) or got[2]):
+                raise AssertionError(f"{label}: region render differs")
+            roi_ms = log_warm_split(
+                label, u8, lambda: JxlImage.from_bytes(data)
+                .render_frame_cropped(0, region).to_u8(), SPLIT_SPANS)["e2e"]
+            log(f"{label}: warm region render {roi_ms:.2f} ms against the "
+                f"full render {full_ms:.2f} ms: {roi_ms / full_ms:.3f}x")
+            if eps:
+                k1_paths[label] = {"launches": got[0],
+                                   "rect": rects[-1] if rects else None,
+                                   "region_ms": roi_ms, "full_ms": full_ms,
+                                   **pass_rows(label, eps)}
+            if sqs:
+                k9_paths[label] = {"launches": got[1],
+                                   **squeeze_row(label, sqs, probe)}
+        if "loading_u8" in ref:
+            img = JxlImage()
+            img.set_image_region(*ref["regions"][0].tolist())
+            img.feed_bytes(data[:int(ref["loading_cut"])])
+            reset_counts()
+            u8 = img.render_loading_frame().to_u8()
+            got = read_counts()
+            diff = max_lsb(u8, ref["loading_u8"])
+            log(f"{name} loading render at byte {int(ref['loading_cut'])} "
+                f"with region {ref['regions'][0].tolist()}: {u8.shape}, max "
+                f"|u8 - JAX| {diff}, launches K1 {got[0]}, K9 {got[1]}")
+            if diff > 1:
+                raise AssertionError(f"{name}: loading region render differs")
+    return k1_paths, k9_paths
+
+
 def main() -> int:
     try:
         import torch
@@ -1836,6 +2055,10 @@ def main() -> int:
     report["paths"].update(feature_k1)
     progressive_k1, progressive_k9 = phase_progressive(device, probe)
     report["paths"].update(progressive_k1)
+    ec_k1, ec_k9 = phase_extra_channels(device, probe)
+    report["paths"].update(ec_k1)
+    roi_k1, roi_k9 = phase_roi(device, probe)
+    report["paths"].update(roi_k1)
     report["max_abs_err"] = max([report["max_abs_err"], worst]
                                 + [p["max_abs_err"]
                                    for p in report["paths"].values()])
@@ -1854,7 +2077,7 @@ def main() -> int:
         "library_ms": None,
         "pyramid": pyramid,
         "paths": {MODULAR_PATH: squeeze_paths[MODULAR_PATH], **color_k9,
-                  **progressive_k9},
+                  **progressive_k9, **ec_k9, **roi_k9},
     }
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [report, squeeze, noise]}))

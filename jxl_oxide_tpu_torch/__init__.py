@@ -12,12 +12,12 @@ decodes on CUDA by default and raises when there is none; pass
 device="cpu" to run the plain torch versions on the CPU. A stream fed in
 pieces (JxlImage().feed_bytes(piece)) renders what has arrived through
 render_loading_frame(); Render.stream() writes samples into caller
-buffers.
+buffers; set_image_region() and render_frame_cropped() decode a region.
 decode_batch, decode_iter and decode_batch_stacked (serving.py) decode
 many streams at once; the last runs same-geometry VarDCT streams as one
-stacked program. The envelope: one keyframe, VarDCT (4:4:4 or chroma-
-subsampled) or lossless Modular, an optional integer alpha, any EXIF
-orientation (see ROADMAP.md).
+stacked program. The envelope: any number of frames, VarDCT (4:4:4 or
+chroma-subsampled) or lossless Modular, any extra channels, any colour
+encoding and EXIF orientation (see ROADMAP.md).
 """
 
 from .api import JxlImage, Render

@@ -10,7 +10,7 @@ them in order against the reference slots with their blending and
 patches (render/context.py, torch ops on the decode device), and caches
 the keyframes it composites.
   - VarDCT: the host stage is the sequence of jxl_oxide_tpu/serving.py
-    `_host_stage_fast`, its alpha leg included (the frame's modular
+    `_host_stage_fast`, its extra channels included (the frame's modular
     sub-streams decode beside the HF sections); the device stage the
     fused 4:4:4 program, the fused chroma-subsampled program or the staged
     path (render/vardct.py, ops/vardct_pipeline.py) and the render tail.
@@ -30,9 +30,14 @@ the EPF is a CUDA kernel on both. A greyscale frame is one colour plane
 goes to the requested encoding (`request_color_encoding`,
 `request_icc`): an enum or an enum-expressible ICC profile takes the
 torch ops on the decode device (color/convert.py), any other profile the
-CMS leg on the host (color/cms.py, Pillow's Little CMS). An alpha
-channel passes through unfiltered, and the render tail applies the EXIF
-orientation (1-8) before the interleave.
+CMS leg on the host (color/cms.py, Pillow's Little CMS; a CMYK source
+hands it the Black extra channel too). Extra channels of every kind pass
+through unfiltered; `Render` applies the spot colours to every pixel
+output, and the EXIF orientation (1-8) before the interleave.
+`set_image_region` and `render_frame_cropped` cut renders to a region:
+the region, mapped into coded space, selects the sections that decode
+(render/roi.py) and the rect the fused VarDCT programs compute, and the
+keyframe cache keeps region renders apart from full ones.
 `render_loading_frame()` renders what has arrived of a stream fed in
 pieces (`feed_bytes`): the complete frames composite in order into one
 RenderContext, and the loading frame renders from its complete sections
@@ -48,6 +53,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import contextvars
+import copy
 from dataclasses import dataclass
 
 import numpy as np
@@ -68,6 +74,7 @@ from .io.container import ContainerParser
 from .render.context import KeyframeRender, RenderContext, planes_bytes
 from .render.frame import Frame
 from .render.render import render_frame
+from .render.roi import use_decode_region
 from .utils.alloc import (
     AllocTracker,
     release_alloc,
@@ -113,6 +120,43 @@ def _apply_orientation(plane: torch.Tensor, orientation: int) -> torch.Tensor:
     return _oriented_rows(plane, orientation, 0, rows)
 
 
+def _orient_region_inverse(region, coded_w: int, coded_h: int,
+                           orientation: int) -> tuple[int, int, int, int]:
+    """A display-space rect (left, top, width, height) mapped into coded
+    space, the inverse of the orientation on regions, then clamped to the
+    coded plane (region.rs apply_orientation with inverse=true; a copy of
+    jxl_oxide_tpu/api.py _orient_region_inverse)."""
+    left, top, width, height = region
+    o = orientation
+    if o == 1:
+        r = (left, top, width, height)
+    elif o == 2:
+        r = (coded_w - left - width, top, width, height)
+    elif o == 3:
+        r = (coded_w - left - width, coded_h - top - height, width, height)
+    elif o == 4:
+        r = (left, coded_h - top - height, width, height)
+    elif o == 5:
+        # display = coded.T: display (y, x) = coded (x, y)
+        r = (top, left, height, width)
+    elif o == 6:
+        # display = coded.T[:, ::-1]: display (y, x) = coded (H-1-x, y)
+        r = (top, coded_h - left - width, height, width)
+    elif o == 7:
+        # display = coded.T[::-1, ::-1]: (y, x) = coded (H-1-x, W-1-y)
+        r = (coded_w - top - height, coded_h - left - width, height, width)
+    elif o == 8:
+        # display = coded.T[::-1, :]: display (y, x) = coded (x, W-1-y)
+        r = (coded_w - top - height, left, height, width)
+    else:
+        raise JxlValidationError(f"invalid orientation {orientation}")
+    x, y, w, h = r
+    x2, y2 = max(0, x), max(0, y)
+    w = max(0, min(x + w, coded_w) - x2)
+    h = max(0, min(y + h, coded_h) - y2)
+    return x2, y2, w, h
+
+
 def _finalize(chans: list, orientation: int, scale: float | None,
               dtype) -> torch.Tensor:
     """Render tail (jxl_oxide_tpu/api.py::_finalize_fn): orientation, then
@@ -131,8 +175,9 @@ class Render:
     """A rendered keyframe in the requested color encoding: one (grey) or
     three [H, W] float32 colour planes and one plane per extra channel, on
     the decode device, in the coded orientation; every pixel output
-    applies `orientation`, and its last axis holds the colour planes, then
-    the alpha if there is one (grey + alpha: [H, W, 2])."""
+    applies the spot colours once (`apply_spot_colors`) and `orientation`,
+    and its last axis holds the colour planes, then the first alpha if
+    there is one (grey + alpha: [H, W, 2])."""
 
     planes: list        # colour planes after the colour transform
     extra: list         # extra channel planes, unfiltered
@@ -140,10 +185,30 @@ class Render:
     orientation: int
     name: str
     duration: int
+    _spot_applied: bool = False
+
+    def apply_spot_colors(self) -> None:
+        """Composite the SpotColour extra channels onto the three colour
+        planes (features/spot_colors.rs:5-37; jxl_oxide_tpu/api.py
+        Render.apply_spot_colors): mix = ec * solidity, then each plane
+        = mix * colour + (1 - mix) * plane, in float32 torch ops on the
+        planes' device, in that order. Idempotent: every pixel output
+        calls it, and it runs once."""
+        if self._spot_applied or len(self.planes) != 3:
+            return
+        self._spot_applied = True
+        for info, ec in zip(self.ec_info, self.extra):
+            if info.ty != ExtraChannelType.SPOT_COLOUR or not info.spot_colour:
+                continue
+            *rgb, solidity = (float(np.float32(v)) for v in info.spot_colour)
+            mix = ec * solidity
+            for c, value in enumerate(rgb):
+                self.planes[c] = mix * value + (1.0 - mix) * self.planes[c]
 
     def _output_chans(self) -> list:
         """Colour planes + the first ALPHA extra channel, if any,
         un-oriented (jxl_oxide_tpu/api.py Render._output_chans)."""
+        self.apply_spot_colors()
         chans = list(self.planes)
         for info, ec in zip(self.ec_info, self.extra):
             if info.ty == ExtraChannelType.ALPHA:
@@ -153,10 +218,12 @@ class Render:
 
     def image_planar(self) -> list:
         """Colour planes with the orientation applied."""
+        self.apply_spot_colors()
         return [_apply_orientation(p, self.orientation) for p in self.planes]
 
     def image_all_channels(self) -> np.ndarray:
         """[H, W, C] float32: colour and every extra channel, oriented."""
+        self.apply_spot_colors()
         return _finalize([*self.planes, *self.extra], self.orientation, None,
                          None).cpu().numpy()
 
@@ -181,31 +248,34 @@ class Render:
         return q.cpu().numpy().astype(np.uint16)
 
     def stream(self) -> "ImageStream":
-        """Interleaved samples, oriented, written into caller buffers a
-        row band at a time (fb.rs:170-398 ImageStream)."""
+        """Interleaved samples, spot colours applied, oriented, written
+        into caller buffers a row band at a time (fb.rs:170-398
+        ImageStream)."""
         return ImageStream(self)
 
 
 class ImageStream:
     """Interleaved samples of a Render written into caller buffers
     (fb.rs ImageStream::write_to_buffer; jxl_oxide_tpu/api.py
-    ImageStream): row-major, x-major, c-minor; colour, then the alpha;
-    oriented; u8, u16 or f32 by the buffer's dtype; resumable across
-    calls. Each call takes from the planes only the row band its samples
-    lie in, quantizes it where the planes are (round half to even,
-    clipped, as the JAX package's numpy does) and brings it to the host:
-    no call downloads a row it does not write, and the whole interleaved
-    image is never built. Spot colours stay outside the port's envelope
-    (ROADMAP Queue 1 item 17)."""
+    ImageStream): row-major, x-major, c-minor; colour, then every extra
+    channel; spot colours applied (on a copy of the Render: the Render
+    itself is left as it was); oriented; u8, u16 or f32 by the buffer's
+    dtype; resumable across calls. Each call takes from the planes only
+    the row band its samples lie in, quantizes it where the planes are
+    (round half to even, clipped, as the JAX package's numpy does) and
+    brings it to the host: no call downloads a row it does not write, and
+    the whole interleaved image is never built."""
 
     def __init__(self, render: Render):
-        # every extra channel that has its info (the port's envelope: at
-        # most one, an alpha), as the JAX package zips them
-        self._chans = [*render.planes,
-                       *(ec for _, ec in zip(render.ec_info, render.extra))]
-        self._orientation = render.orientation
+        r = copy.copy(render)
+        r.planes = list(render.planes)
+        r.apply_spot_colors()
+        # every extra channel that has its info, as the JAX package zips
+        # them
+        self._chans = [*r.planes, *(ec for _, ec in zip(r.ec_info, r.extra))]
+        self._orientation = r.orientation
         h, w = self._chans[0].shape
-        self.height, self.width = (w, h) if render.orientation >= 5 else (h, w)
+        self.height, self.width = (w, h) if r.orientation >= 5 else (h, w)
         self.channels = len(self._chans)
         self._pos = 0
 
@@ -276,7 +346,12 @@ class JxlImage:
         self._frames: list[Frame] = []
         self._frames_complete = False
         self._header_bs: Bitstream | None = None
-        self._keyframe_cache: dict[int, KeyframeRender] = {}
+        # keyframe canvases: a full one under its keyframe index, one
+        # rendered under a region under (index, region)
+        self._keyframe_cache: dict = {}
+        # the display-space region (left, top, width, height) that renders
+        # crop to (set_image_region), or None
+        self._image_region: tuple[int, int, int, int] | None = None
         self.requested_encoding: ColourEncoding | None = None
         self.requested_icc: bytes | None = None
         # the CMS of ICC legs; constructing it needs no Pillow
@@ -514,26 +589,20 @@ class JxlImage:
     # -- the envelope -------------------------------------------------------
 
     def _check_envelope(self, frame_indices) -> None:
-        """The port's envelope, for the image and each frame of
-        `frame_indices` (a keyframe's dependency cone: a frame that is not
-        the target can carry what the target does not). Image: any EXIF
-        orientation, at most one extra channel (an alpha with integer
-        samples, at any dim_shift), any colour encoding (XYB, an RGB or
-        grey enum, an embedded ICC profile). Frames: any number, blended,
-        cropped or reference-only, with patches, splines and noise, frame
-        and EC upsampling, LF frames and LF-frame chains; VarDCT 4:4:4 or
+        """The port's envelope, for each frame of `frame_indices` (a
+        keyframe's dependency cone: a frame that is not the target can
+        carry what the target does not). Image: any EXIF orientation, any
+        extra channels (alphas, premultiplied or not, spot colours, depth,
+        CMYK's Black and every other kind, integer or float samples, at
+        any dim_shift), any colour encoding (XYB, an RGB or grey enum, an
+        embedded ICC profile). Frames: any number, blended, cropped or
+        reference-only, with patches, splines and noise, frame and EC
+        upsampling, LF frames and LF-frame chains; VarDCT 4:4:4 or
         chroma-subsampled YCbCr (4:2:0, 4:2:2, 4:4:0), or Modular (4:4:4
-        YCbCr included) with integer or float samples. Anything else
-        raises JxlNotSupportedError naming the ROADMAP item that will port
-        it. render_loading_frame checks each frame it renders, the loading
-        one too."""
-        meta = self.image_header.metadata
-        if len(meta.ec_info) > 1 or any(
-                info.ty != ExtraChannelType.ALPHA or info.bit_depth.is_float
-                for info in meta.ec_info):
-            raise _not_supported(
-                "extra channels other than one integer alpha (spot colours, "
-                "float alpha and other types)", 17)
+        YCbCr included) with integer or float samples. The two YCbCr
+        layouts left raise JxlNotSupportedError naming their ROADMAP item.
+        render_loading_frame checks each frame it renders, the loading one
+        too."""
         for i in frame_indices:
             header = self._frames[i].header
             subsampled = any(j != 0 for j in header.jpeg_upsampling)
@@ -602,15 +671,19 @@ class JxlImage:
         with span("Transform to requested color encoding"):
             return list(tr.run(color))
 
-    def _final_color(self, color: list, frame_header, ct_done: bool) -> list:
+    def _final_color(self, color: list, extra: list, frame_header,
+                     ct_done: bool) -> list:
         """postprocess_keyframe's colour (render/lib.rs:884-994; the colour
         branches of jxl_oxide_tpu/api.py _postprocess): YCbCr -> RGB, then
         the transform to the output encoding, unless the canvas was
-        converted before blending (ct_done, lib.rs:934).
+        converted before blending (ct_done, lib.rs:934). `extra` are the
+        keyframe's extra channel planes.
           - An embedded ICC profile that an enum expresses takes the enum
             transform to the requested encoding (sRGB by default); any
             other profile, or one with a requested ICC profile, the CMS
-            leg on the host, and NullCms keeps the samples as they are.
+            leg on the host, and NullCms keeps the samples as they are. A
+            CMYK source hands the CMS its first BLACK extra channel as a
+            fourth plane (jxl_oxide_tpu/api.py:1105-1125).
           - An XYB or enum source takes the enum transform to the
             requested encoding, or to the profile a requested ICC
             expresses; a profile no enum expresses renders to sRGB, then
@@ -631,9 +704,12 @@ class JxlImage:
                     enum_src, self.requested_encoding or ColourEncoding(),
                     meta), color)
             if self.requested_icc is not None or self._cms is not None:
+                black = [ec for info, ec in zip(meta.ec_info, extra)
+                         if info.ty == ExtraChannelType.BLACK][:1]
                 try:
                     return self._run_cms(self._cms.prepare_transform(
-                        self.embedded_icc, self.requested_icc), color)
+                        self.embedded_icc, self.requested_icc),
+                        color + black)
                 except JxlNotSupportedError:
                     pass  # NullCms: keep the ICC-described samples
             return color
@@ -720,7 +796,7 @@ class JxlImage:
                     hj = frames[j].header
                     if hj.can_reference and hj.save_as_reference == s:
                         k = kf_of_frame.get(j)
-                        cached = (self._keyframe_cache.get(k)
+                        cached = (self._cache_lookup(k)
                                   if k is not None else None)
                         if cached is not None and j not in needed:
                             seeds[(j, s)] = cached
@@ -735,11 +811,29 @@ class JxlImage:
     # with a decode memory limit, half of that limit
     _KEYFRAME_CACHE_MAX_BYTES = 512 << 20
 
-    def _cache_store(self, keyframe_idx: int, kf: KeyframeRender) -> None:
+    def _cache_key(self, keyframe_idx: int):
+        """The cache key of a keyframe rendered now: its index for the full
+        canvas, (index, region) under a region (jxl_oxide_tpu/api.py
+        _cache_key keys every entry by the pair)."""
+        if self._image_region is None:
+            return keyframe_idx
+        return (keyframe_idx, self._image_region)
+
+    def _cache_lookup(self, keyframe_idx: int) -> KeyframeRender | None:
+        """The cached canvas for the current region, else the full canvas,
+        which serves any region (jxl_oxide_tpu/api.py _cache_lookup; one
+        render cache serves both in the reference, jxl-render/src/state.rs
+        RenderCache)."""
+        kf = self._keyframe_cache.get(self._cache_key(keyframe_idx))
+        if kf is None and self._image_region is not None:
+            kf = self._keyframe_cache.get(keyframe_idx)
+        return kf
+
+    def _cache_store(self, key, kf: KeyframeRender) -> None:
         """FIFO keyframe cache, bounded by count and by bytes; the newest
         entry always stays (it is the render being returned)."""
         cache = self._keyframe_cache
-        cache[keyframe_idx] = kf
+        cache[key] = kf
         max_bytes = self._KEYFRAME_CACHE_MAX_BYTES
         if self._tracker is not None:
             max_bytes = min(max_bytes, self._tracker.limit // 2)
@@ -787,7 +881,11 @@ class JxlImage:
             return {i: fut.result() for i, fut in futs.items()}
 
     def _render_keyframe(self, keyframe_idx: int) -> KeyframeRender:
-        cached = self._keyframe_cache.get(keyframe_idx)
+        """Keyframe `keyframe_idx` composited, from the cache or from its
+        cone; under a region (set_image_region, render_frame_cropped) the
+        cone renders with the region mapped into coded space, so its
+        frames decode only the sections that meet it (render/roi.py)."""
+        cached = self._cache_lookup(keyframe_idx)
         if cached is not None:
             return cached
         target = self._keyframe_index(keyframe_idx)
@@ -805,7 +903,8 @@ class JxlImage:
                 last_slot_read[s] = i
             if h.flags.use_lf_frame:
                 last_lf_read[h.lf_level] = i
-        with use_tracker(self._tracker), use_decode_device(self.device):
+        with use_tracker(self._tracker), use_decode_device(self.device), \
+                use_decode_region(self._coded_region()):
             ctx = RenderContext(self.image_header, self.device)
             # seed events in timeline order: each applies just before the
             # first cone frame after its writer's position
@@ -828,7 +927,8 @@ class JxlImage:
                 if kf is not None:
                     # a retained canvas charges the memory budget
                     track_alloc(self._kf_bytes(kf))
-                    self._cache_store(self._kf_index_of_frame(i), kf)
+                    self._cache_store(
+                        self._cache_key(self._kf_index_of_frame(i)), kf)
                 for s in range(4):
                     if (ctx.reference[s] is not None
                             and last_slot_read.get(s, -1) <= i):
@@ -836,35 +936,91 @@ class JxlImage:
                     if (ctx.lf_frames[s] is not None
                             and last_lf_read.get(s, -1) <= i):
                         ctx.release_lf_frame(s)
-        result = self._keyframe_cache.get(keyframe_idx)
+        result = self._cache_lookup(keyframe_idx)
         if result is None:
             raise JxlValidationError(
                 "target frame did not produce a keyframe")
         return result
 
-    def _postprocess(self, kf: KeyframeRender) -> Render:
-        """The Render of a composited keyframe (postprocess_keyframe). Its
-        planes are never the cache's own tensors, which a caller could
-        write into."""
-        color = self._final_color(kf.color, kf.frame.header, kf.ct_done)
+    def _needs_full_frame_postprocess(self) -> bool:
+        """Whether the colour tail reads the whole image: tone mapping
+        relative to the display's peak detects it over every pixel
+        (convert.rs:478-500 detect_peak), so a crop waits until after it
+        (jxl_oxide_tpu/api.py _needs_full_frame_postprocess)."""
+        tm = self.image_header.metadata.tone_mapping
+        return (tm is not None
+                and getattr(tm, "relative_to_max_display", False)
+                and getattr(tm, "intensity_target", 255.0) > 255.0)
+
+    def _crop(self, planes: list, crop) -> list:
+        """The display-space region `crop` of coded-space planes: mapped
+        through the inverse orientation, clamped to the planes, copied."""
+        if not planes:
+            return []
+        ch, cw = planes[0].shape
+        left, top, width, height = _orient_region_inverse(
+            crop, cw, ch, self.image_header.metadata.orientation)
+        return [p[top:top + height, left:left + width].clone()
+                for p in planes]
+
+    def _postprocess(self, kf: KeyframeRender, crop=None) -> Render:
+        """The Render of a composited keyframe (postprocess_keyframe),
+        cut to the display-space region `crop` if one is given: before the
+        colour tail, whose ops are pointwise, unless it reads the whole
+        image (jxl_oxide_tpu/api.py _postprocess). Its planes are never the
+        cache's own tensors, which a caller could write into."""
+        color, extra = list(kf.color), list(kf.extra)
+        late_crop = crop is not None and self._needs_full_frame_postprocess()
+        if crop is not None and not late_crop:
+            color, extra = self._crop(color, crop), self._crop(extra, crop)
+        color = self._final_color(color, extra, kf.frame.header, kf.ct_done)
+        if late_crop:
+            color, extra = self._crop(color, crop), self._crop(extra, crop)
         cached = {id(p) for p in (*kf.color, *kf.extra)}
         meta = self.image_header.metadata
         return Render(
             planes=[p.clone() if id(p) in cached else p for p in color],
-            extra=[p.clone() for p in kf.extra],
+            extra=[p.clone() if id(p) in cached else p for p in extra],
             ec_info=list(meta.ec_info), orientation=meta.orientation,
             name=kf.name, duration=kf.duration)
 
     def render_frame(self, keyframe_idx: int = 0) -> Render:
         """Keyframe `keyframe_idx`, composited: its dependency cone is
         rendered on the decode device, blended and patched against the
-        reference slots, and cached."""
-        return self._postprocess(self._render_keyframe(keyframe_idx))
+        reference slots, and cached; cut to the region of
+        set_image_region, if one is set."""
+        return self._postprocess(self._render_keyframe(keyframe_idx),
+                                 crop=self._image_region)
 
-    def render_frame_cropped(self, *args, **kwargs):
-        raise JxlNotSupportedError(
-            "region-of-interest decode is not ported yet (ROADMAP Queue 1 "
-            "item 14)")
+    def render_frame_cropped(self, keyframe_idx: int, crop) -> Render:
+        """Keyframe `keyframe_idx` cut to the display-space region `crop`
+        (left, top, width, height) (jxl-oxide lib.rs render_frame_cropped;
+        jxl_oxide_tpu/api.py:914-927): the sections outside it are not
+        decoded, and the image-wide region of set_image_region stays as
+        it was."""
+        saved = self._image_region
+        try:
+            self._image_region = tuple(crop)
+            return self._postprocess(self._render_keyframe(keyframe_idx),
+                                     crop=self._image_region)
+        finally:
+            self._image_region = saved
+
+    def set_image_region(self, left: int, top: int, width: int,
+                         height: int) -> None:
+        """Crop every later render to this display-space region (jxl-oxide
+        set_image_region)."""
+        self._image_region = (left, top, width, height)
+
+    def _coded_region(self):
+        """The region mapped into coded image coordinates (for the section
+        selection), or None."""
+        if self._image_region is None:
+            return None
+        size = self.image_header.size
+        return _orient_region_inverse(self._image_region, size.width,
+                                      size.height,
+                                      self.image_header.metadata.orientation)
 
     def render_loading_frame(self) -> Render:
         """What has arrived of the stream, rendered (jxl_oxide_tpu/api.py
@@ -880,9 +1036,10 @@ class JxlImage:
 
         A loading frame that sets use_lf_frame renders on its LF slot; the
         JAX package renders it, and its cached state then renders the
-        complete frame, with no LF (ROADMAP Queue 3). ROI (ROADMAP
-        Queue 1 item 14) and the sharded programs (item 13) stay
-        unported."""
+        complete frame, with no LF (ROADMAP Queue 3). Frames render whole
+        and the result is cut to the region of set_image_region, as the
+        JAX package's loading render is. The sharded programs (ROADMAP
+        Queue 1 item 13) stay unported."""
         if not self._frames:
             raise JxlEofError("no frame data buffered yet")
         from .render.vardct import ProgressiveCache
@@ -904,6 +1061,8 @@ class JxlImage:
                 kf = ctx.add_frame(frame)
                 if kf is not None:
                     self._progressive_kf = kf
+                    # the full canvas, under its index: it serves any
+                    # region
                     k = self._kf_index_of_frame(i)
                     if k not in self._keyframe_cache:
                         track_alloc(self._kf_bytes(kf))
@@ -913,7 +1072,8 @@ class JxlImage:
             if self._progressive_fed >= len(self._frames):
                 if self._progressive_kf is None:
                     raise JxlEofError("no renderable frame data yet")
-                return self._postprocess(self._progressive_kf)
+                return self._postprocess(self._progressive_kf,
+                                         crop=self._image_region)
 
             i = self._progressive_fed
             frame = self._frames[i]
@@ -929,4 +1089,5 @@ class JxlImage:
                 fr = render_frame(frame, self.device, cache)
             finally:
                 frame._lf_frame_planes = None
-            return self._postprocess(ctx.composite_partial(fr, frame))
+            return self._postprocess(ctx.composite_partial(fr, frame),
+                                     crop=self._image_region)

@@ -296,7 +296,10 @@ class Frame:
         gate keeps their small planes on the host (a group plane as large
         as the gate finishes on the device and is written back). Each call
         decodes afresh, LfGlobal included: finishing transforms the
-        ModularImage's buffers in place."""
+        ModularImage's buffers in place. Under a decode region
+        (render/roi.py) a multi-section frame that `frame_supports_roi`
+        admits decodes only the sections that meet it; the others stay
+        zero."""
         if self.header.encoding != Encoding.MODULAR:
             raise ValueError("not a modular frame")
         self.lf_global = None
@@ -318,8 +321,28 @@ class Frame:
                 sub = pass_groups[pass_idx].get(0) if pass_idx < len(pass_groups) else None
                 self._decode_pass_group(bs, pass_idx, 0, sub, gmodular)
         else:
-            self._run_section_jobs(
-                self._section_jobs(lf_groups, pass_groups), gmodular)
+            # a decode region (render/roi.py) skips the sections that do
+            # not meet it, where the frame allows it
+            from .roi import (
+                frame_supports_roi,
+                get_decode_region,
+                group_intersects,
+                lf_group_intersects,
+            )
+
+            roi = get_decode_region()
+            take = None
+            if roi is not None and frame_supports_roi(self):
+                def take(key):
+                    if key[0] == "lf_group":
+                        return lf_group_intersects(self, key[1], roi)
+                    return group_intersects(self, key[1], roi)
+            jobs = self._section_jobs(lf_groups, pass_groups, take)
+            # the pass-group sections decoded (the JAX package counts them
+            # in the same attribute)
+            self._pass_group_jobs = sum(
+                1 for j in jobs if j[0] == self._decode_pass_group_job)
+            self._run_section_jobs(jobs, gmodular)
         return modular
 
     def _section_jobs(self, lf_groups, pass_groups, take=None) -> list:

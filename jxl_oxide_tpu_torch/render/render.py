@@ -7,15 +7,17 @@ state.filters_applied), so on their planes the tail only crops; the
 staged path's planes take every step here.
 
 Modular: the original channels of the frame's ModularImage -> floats
-(integer samples, lossless XYB, or float samples on the host) ->
-gaborish -> EPF at the frame's constant sigma. A greyscale frame has one
+(integer samples, lossless XYB, or float samples, converted where the
+samples are: on the card after the device tail) -> gaborish -> EPF at
+the frame's constant sigma. A greyscale frame has one
 colour plane: the filters run on it cloned to three planes, as the JAX
 package runs them, and plane 0 is kept (the EPF's distance sums the
 three channels in order, so the clone keeps it bit for bit).
 
-Extra channels (the port's envelope: one integer alpha) convert with
-their own bit depth and are never filtered (`extra_channel_planes`), on
-both paths.
+Extra channels (any number, any kind: alpha, spot colour, depth, the
+Black of CMYK, ...) convert with their own bit depth, integer or float,
+and are never filtered (`extra_channel_planes`), on both paths: a VarDCT
+frame's come from the GlobalModular image beside its HF data.
 
 `render_frame` renders one frame of any kind (keyframe, reference-only,
 cropped) to a FrameRender of frame-sized planes on the device: the host
@@ -25,8 +27,12 @@ With a ProgressiveCache (render/vardct.py) it renders a loading frame
 sections complete since the last call into the cached state, and the
 device stage runs on what has arrived (missing groups decode as zero
 HF, a missing HfGlobal as pure LF, a Modular frame finishes a snapshot
-of its channels). ROI and the sharded programs stay unported (ROADMAP
-Queue 1 items 14 and 13).
+of its channels). Under a decode region (render/roi.py, api.py
+`set_image_region`) a one-shot render decodes only the sections that
+meet the region, and a VarDCT frame's fused program computes only the
+group-aligned rect around it (`device_rect`); the planes keep the
+frame's size, zero outside the rect. The sharded programs stay unported
+(ROADMAP Queue 1 item 13).
 Colour stays as coded (YCbCr for a YCbCr frame, XYB for an XYB image):
 the colour transform runs at compositing (render/context.py) or at the
 end (api.py `_postprocess`).
@@ -38,7 +44,7 @@ Behavioral parity: jxl-render/src/render.rs (render_frame), image.rs
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -84,11 +90,14 @@ class HostStage:
     state: object       # render.vardct.VardctFrameState
     hf_global: object   # render.vardct.HfGlobal
     frame: object
-    # the alpha channel's integer samples (numpy), or None
-    alpha: np.ndarray | None = None
+    # the samples (numpy) of every extra channel, in ec_info order
+    extra: list = field(default_factory=list)
     # a loading frame's cached state (`partial_host_stage`): later
     # sections write into its planes, so the device stage keeps them
     resumable: bool = False
+    # the plane rect (x0, y0, x1, y1) the fused program computes under a
+    # decode region (render/roi.py `device_rect`), or None
+    rect: tuple | None = None
 
 
 @dataclass
@@ -100,27 +109,6 @@ class ModularHostStage:
     modular: object     # models.modular.ModularImage
     channels: list | None
     frame: object
-
-
-def _parse_float_samples(arr: np.ndarray, bit_depth) -> np.ndarray:
-    """Float samples stored as integers -> float32 on the host (the float
-    branch of jxl_oxide_tpu/render/render.py _parse_integer_samples,
-    jxl-image lib.rs:458-487)."""
-    bits = bit_depth.bits_per_sample
-    exp_bits = bit_depth.exp_bits
-    if bits == 32 and exp_bits == 8:
-        return arr.astype(np.uint32).view(np.float32).astype(np.float32)
-    mantissa_bits = bits - exp_bits - 1
-    u = arr.astype(np.int64) & ((1 << bits) - 1)
-    sign = (u >> (bits - 1)) & 1
-    exp = (u >> mantissa_bits) & ((1 << exp_bits) - 1)
-    mant = u & ((1 << mantissa_bits) - 1)
-    bias = (1 << (exp_bits - 1)) - 1
-    val = np.ldexp(
-        1.0 + mant / (1 << mantissa_bits), (exp - bias).astype(np.int32)
-    )
-    val = np.where(exp == 0, np.ldexp(mant / (1 << mantissa_bits), 1 - bias), val)
-    return np.where(sign == 1, -val, val).astype(np.float32)
 
 
 def _upload(chans: list, device) -> torch.Tensor:
@@ -144,18 +132,54 @@ def integer_samples_to_float(planes: torch.Tensor, bits: int) -> torch.Tensor:
     return planes.to(torch.float32) / div
 
 
+def float_samples_to_float(samples: torch.Tensor, bit_depth) -> torch.Tensor:
+    """Float samples stored as integers -> float32, on the samples' device
+    (the float branch of jxl_oxide_tpu/render/render.py
+    _parse_integer_samples, jxl-image lib.rs:458-487), bit for bit the JAX
+    package's numpy: sign, exponent and mantissa are cut from the low
+    `bits` bits in int64, the value is built in float64 (the power of two
+    from its exponent bits, exact) and rounded once to float32. 32-bit
+    samples with 8 exponent bits are float32 bit patterns."""
+    bits = bit_depth.bits_per_sample
+    exp_bits = bit_depth.exp_bits
+    u = samples.to(torch.int64) & ((1 << bits) - 1)
+    if bits == 32 and exp_bits == 8:
+        # the low 32 bits as a signed int32, then reinterpreted
+        return (u - ((u >> 31) << 32)).to(torch.int32).view(torch.float32)
+    mantissa_bits = bits - exp_bits - 1
+    sign = (u >> (bits - 1)) & 1
+    exp = (u >> mantissa_bits) & ((1 << exp_bits) - 1)
+    mant = (u & ((1 << mantissa_bits) - 1)).to(torch.float64) / float(
+        1 << mantissa_bits)
+    bias = (1 << (exp_bits - 1)) - 1
+
+    def pow2(e):
+        # 2^e as float64 from its exponent field: exact, where a pow or
+        # ldexp on the card need not be
+        return ((e + 1023) << 52).view(torch.float64)
+
+    val = torch.where(exp == 0, mant * pow2(torch.full_like(exp, 1 - bias)),
+                      (1.0 + mant) * pow2(exp - bias))
+    return torch.where(sign == 1, -val, val).to(torch.float32)
+
+
+def samples_to_float(samples: torch.Tensor, bit_depth) -> torch.Tensor:
+    """Integer samples of `bit_depth` (integer or float) -> float32."""
+    if bit_depth.is_float:
+        return float_samples_to_float(samples, bit_depth)
+    return integer_samples_to_float(samples, bit_depth.bits_per_sample)
+
+
 def extra_channel_planes(chans: list, ec_info: list, device) -> list:
     """[h, w] float32 planes on `device` of a frame's extra channels, from
-    their integer samples (numpy arrays or tensors), each converted with
-    its own bit depth (jxl-render image.rs:507-508). No filter touches
-    them. The envelope (api.py `_check_envelope`) admits integer samples
-    only."""
+    their samples (numpy arrays, or int32 tensors from the device tail),
+    each converted with its own bit depth, integer or float (jxl-render
+    image.rs:507-508). No filter touches them."""
     out = []
     for chan, info in zip(chans, ec_info):
         t = chan if isinstance(chan, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(chan))
-        out.append(integer_samples_to_float(
-            t.to(device), info.bit_depth.bits_per_sample))
+        out.append(samples_to_float(t.to(device), info.bit_depth))
     return out
 
 
@@ -181,13 +205,9 @@ def render_modular_tail(frame, chans: list, device) -> tuple[list, list]:
         m_x, m_y, m_b = (m / 128.0 for m in frame.lf_global.lf_dequant)
         color = [(x * m_x).to(torch.float32), (y * m_y).to(torch.float32),
                  (b * m_b).to(torch.float32)]
-    elif bit_depth.is_float:
-        color = list(torch.from_numpy(np.stack([
-            _parse_float_samples(np.asarray(c), bit_depth)
-            for c in color_chans])).to(device).unbind(0))
     else:
-        color = list(integer_samples_to_float(
-            _upload(color_chans, device), bit_depth.bits_per_sample).unbind(0))
+        color = list(samples_to_float(_upload(color_chans, device),
+                                      bit_depth).unbind(0))
     extra = extra_channel_planes(
         chans[frame.lf_global.gmodular.extra_channel_from:], meta.ec_info,
         color[0].device)
@@ -275,7 +295,7 @@ def render_vardct_tail(state, planes: list) -> list:
 @traced("Host entropy stage")
 def host_stage(frame) -> HostStage | ModularHostStage:
     """Headers of the frame's sections plus the C++ entropy decode: into
-    whole-frame coefficient planes and the alpha channel for a VarDCT
+    whole-frame coefficient planes and the extra channels for a VarDCT
     frame (jxl_oxide_tpu/serving.py `_host_stage_fast`), into the Modular
     channel slots for a Modular frame, whose inverse transforms run here
     when the gate keeps them on the host. The gate reads the decode
@@ -300,6 +320,7 @@ def _host_tail_if_selected(modular, fr) -> ModularHostStage:
 
 
 def _vardct_host_stage(fr) -> HostStage:
+    from .roi import device_rect, frame_supports_roi, get_decode_region
     from .vardct import HfGlobal, VardctFrameState, parse_lf_group
 
     header = fr.header
@@ -308,9 +329,12 @@ def _vardct_host_stage(fr) -> HostStage:
     fr.lf_global = None
     lf_global = fr.parse_lf_global()
     gmod = lf_global.gmodular
-    # a VarDCT frame's modular image holds its extra channels only (the
-    # envelope: one alpha); its sub-streams follow the LF and HF data
-    # of the sections (jxl-frame pass_group.rs:139)
+    roi = get_decode_region()
+    if roi is not None and not frame_supports_roi(fr):
+        roi = None
+    # a VarDCT frame's modular image holds its extra channels only; their
+    # sub-streams follow the LF and HF data of the sections (jxl-frame
+    # pass_group.rs:139)
     modular = gmod.modular
     if modular is not None:
         mlf_groups, pass_groups = modular.prepare_groups(fr.pass_shifts)
@@ -330,11 +354,13 @@ def _vardct_host_stage(fr) -> HostStage:
                                   gmod)
     else:
         hf_global = _decode_vardct_sections(fr, state, lf_global,
-                                            (mlf_groups, pass_groups))
-    alpha = None
+                                            (mlf_groups, pass_groups),
+                                            roi=roi)
+    extra = []
     if modular is not None:
-        alpha = modular.finish()[gmod.extra_channel_from]
-    return HostStage(state, hf_global, fr, alpha)
+        extra = list(modular.finish()[gmod.extra_channel_from:])
+    rect = device_rect(fr, state, roi) if roi is not None else None
+    return HostStage(state, hf_global, fr, extra, rect=rect)
 
 
 def _pass_sub(pass_groups, p: int, g: int):
@@ -342,13 +368,18 @@ def _pass_sub(pass_groups, p: int, g: int):
 
 
 def _decode_vardct_sections(fr, state, lf_global, groups, hf_global=None,
-                            take=None):
+                            take=None, roi=None):
     """The sections of a multi-section VarDCT frame into `state`, with
     the native batches: its LF groups, then HfGlobal (unless `hf_global`
     is given), then its pass groups, each group's passes in order. With
     `take` (a loading frame's `ProgressiveCache.take`), only the sections
-    it takes, and HfGlobal only once complete. Returns the HfGlobal, or
-    None while it has not arrived (no pass group decodes then)."""
+    it takes, and HfGlobal only once complete. With `roi` (a coded-space
+    decode region, render/roi.py), only the groups that meet it, as
+    jxl_oxide_tpu/render/vardct.py decode_vardct_frame selects them; the
+    pass groups decoded are counted in fr._pass_group_jobs. Returns the
+    HfGlobal, or None while it has not arrived (no pass group decodes
+    then)."""
+    from .roi import group_intersects, lf_group_intersects
     from .vardct import (
         HfGlobal,
         _decode_lf_groups_batch,
@@ -360,7 +391,8 @@ def _decode_vardct_sections(fr, state, lf_global, groups, hf_global=None,
     gmod = lf_global.gmodular
     mlf_groups, pass_groups = groups
     lf_jobs = [i for i in range(header.num_lf_groups)
-               if take is None or take(("lf_group", i))]
+               if (take is None or take(("lf_group", i)))
+               and (roi is None or lf_group_intersects(fr, i, roi))]
     if lf_jobs:
         done = _decode_lf_groups_batch(fr, state, lf_global, lf_jobs,
                                        mlf_groups)
@@ -380,6 +412,8 @@ def _decode_vardct_sections(fr, state, lf_global, groups, hf_global=None,
         return None
     by_group: dict[int, list] = {}
     for g in range(header.num_groups):
+        if roi is not None and not group_intersects(fr, g, roi):
+            continue
         # a pass group needs its LF group's varblock grid, and the passes
         # of a group add up in order: each is taken after the one before
         after = ("lf_group", header.lf_group_idx_from_group_idx(g))
@@ -388,6 +422,7 @@ def _decode_vardct_sections(fr, state, lf_global, groups, hf_global=None,
             if take is None or take(key, after):
                 by_group.setdefault(g, []).append((p, g))
             after = key
+    fr._pass_group_jobs = sum(len(v) for v in by_group.values())
     leftover = _decode_pass_groups_batch(
         fr, state, hf_global, by_group, pass_groups, gmod) if by_group else []
     for jobs in leftover:
@@ -437,11 +472,12 @@ def _vardct_resumable_host_stage(fr, cache) -> HostStage:
         fr, cache.vardct_state, lf_global, cache.groups_prepared,
         cache.hf_global, lambda key, after=None: cache.take(fr, key, after))
     gmod = lf_global.gmodular
-    alpha = None
+    extra = []
     if gmod.modular is not None:
         # finish a copy, so that later sections decode into the original
-        alpha = gmod.modular.snapshot().finish()[gmod.extra_channel_from]
-    return HostStage(cache.vardct_state, cache.hf_global, fr, alpha,
+        extra = list(gmod.modular.snapshot().finish()[
+            gmod.extra_channel_from:])
+    return HostStage(cache.vardct_state, cache.hf_global, fr, extra,
                      resumable=True)
 
 
@@ -458,23 +494,22 @@ def device_stage(host, device) -> FrameRender:
         chans = host.channels
         if chans is None:
             with use_decode_device(device), span("Modular tail"):
-                # float samples are converted on the host
-                chans = host.modular.finish(
-                    to_device=not meta.bit_depth.is_float)
+                chans = host.modular.finish(to_device=True)
         color, extra = render_modular_tail(frame, chans, device)
     else:
         from .vardct import decode_vardct_planes
 
         state = host.state
-        color = decode_vardct_planes(state, host.hf_global, device)
+        color = decode_vardct_planes(state, host.hf_global, device,
+                                     host.rect)
         if not host.resumable:
             # a cached state's planes still take later sections: handing
             # them to the plane pool now would let another decode zero
             # and fill them
             state.trim_coeff_planes()
         color = render_vardct_tail(state, color)
-        extra = [] if host.alpha is None else extra_channel_planes(
-            [host.alpha], meta.ec_info, color[0].device)
+        extra = extra_channel_planes(host.extra, meta.ec_info,
+                                     color[0].device)
     return FrameRender(color=list(color), extra=list(extra), frame=frame)
 
 

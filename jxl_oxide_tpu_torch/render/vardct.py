@@ -21,9 +21,11 @@ tensors, `lf_override`) as its pre-dequantized LF on the fused 4:4:4 and
 staged paths, edge-padded on their device. A loading frame keeps its
 VarDCT state in a `ProgressiveCache` between renders (render/render.py
 `partial_host_stage`): the planes stay with the state until the frame is
-complete, and each render runs the device pipeline on them again. The
-sharded and ROI paths are not ported yet (ROADMAP Queue 1 items 13 and
-14).
+complete, and each render runs the device pipeline on them again. Under
+a decode region (render/roi.py) both fused programs compute only a
+group-aligned rect of the planes (their `rect` legs), embedded in zero
+planes of the frame's size. The sharded paths are not ported yet
+(ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -735,7 +737,8 @@ class VardctFrameState:
             out.append(p.contiguous())
         return out
 
-    def run_device_pipeline(self, hf_global: HfGlobal | None, device):
+    def run_device_pipeline(self, hf_global: HfGlobal | None, device,
+                            rect=None):
         """Dequant -> CfL -> inverse transforms (and, on the fused paths,
         the filters), on `device`. Returns [x, y, b] float32 planes: at
         frame sample size from the fused 4:4:4 program, at full
@@ -743,7 +746,12 @@ class VardctFrameState:
         shifted rounded plane sizes from the staged path. The flags
         filters_applied and chroma_upsampled say which; both are reset
         first, since a cached loading frame's state runs this again and
-        may take another path as its plan grows.
+        may take another path as its plan grows. `rect` (x0, y0, x1, y1),
+        group-aligned in full-resolution plane pixels (render/roi.py
+        `device_rect`), restricts a fused program to that rect, embedded
+        at its place in zero planes of the usual size; the staged path
+        computes the whole planes (its output is cropped to the region
+        later, as the JAX package's is).
 
         Subsampled frames never carry adaptive LF smoothing (rejected at
         FrameHeader.parse) or an LF-frame override (jpeg_upsampling is only
@@ -751,9 +759,9 @@ class VardctFrameState:
         self.filters_applied = False
         self.chroma_upsampled = False
         if not self.subsampled:
-            return self._run_fused(hf_global, device)
+            return self._run_fused(hf_global, device, rect)
         assert self.lf_override is None
-        return self._run_fused_subsampled(hf_global, device)
+        return self._run_fused_subsampled(hf_global, device, rect)
 
     _fused_cache: dict = {}
     # programs built by `program` since import (a loading frame's key can
@@ -1043,8 +1051,10 @@ class VardctFrameState:
         ]
         return key, make_fn, inputs
 
-    def _run_program(self, make_parts, hf_global: HfGlobal | None, device):
-        """One fused program: its host inputs (make_parts(hf_global)), ONE
+    def _run_program(self, make_parts, hf_global: HfGlobal | None, device,
+                     rect=None):
+        """One fused program: its host inputs (make_parts(hf_global,
+        rect=rect)), ONE
         host-to-device copy of all of them (packed into one pinned staging
         buffer on a CUDA device), then the program, built once per key and
         device in the class-wide cache. Returns its three planes on
@@ -1052,7 +1062,7 @@ class VardctFrameState:
         from ..ops.vardct_pipeline import upload_inputs
 
         with span("Fused program inputs"):
-            parts = make_parts(hf_global)
+            parts = make_parts(hf_global, rect=rect)
         if parts is None:
             return None
         key, make_fn, inputs = parts
@@ -1065,19 +1075,25 @@ class VardctFrameState:
         return [out[0], out[1], out[2]]
 
     @traced("Dequant and transform")
-    def _run_fused(self, hf_global: HfGlobal | None, device):
-        """The fused 4:4:4 program, or the staged path when the dense plan
-        overflows. Returns the [x, y, b] frame-size planes on `device`."""
-        out = self._run_program(self.fused_program_parts, hf_global, device)
+    def _run_fused(self, hf_global: HfGlobal | None, device, rect=None):
+        """The fused 4:4:4 program (on `rect` only, if given), or the
+        staged path when the dense plan overflows. Returns the [x, y, b]
+        frame-size planes on `device`."""
+        out = self._run_program(self.fused_program_parts, hf_global, device,
+                                rect)
         if out is None:
             return self._run_staged(hf_global, device)
         self._planes_poolable = True  # its inputs were plane COPIES
         return out
 
-    def _subsampled_channel_plans(self, hf_global: HfGlobal | None):
+    def _subsampled_channel_plans(self, hf_global: HfGlobal | None,
+                                  rect=None):
         """Per-channel (entries, code_grid, mul_grid, matrices) dense
         plans of the fused subsampled program, with the qm scales; None
-        when a channel's plan overflows (the staged path)."""
+        when a channel's plan overflows (the staged path). `rect`
+        (full-resolution plane pixels, group-aligned origin) keeps each
+        channel's blocks inside it, rebased to its origin at the channel's
+        shift (jxl_oxide_tpu/render/vardct.py:1337-1374)."""
         header = self.header
         qm_scale = (
             0.8 ** (header.x_qm_scale - 2),
@@ -1087,8 +1103,27 @@ class VardctFrameState:
         plans = []
         for c in range(3):
             buckets = self.buckets(c)
-            entries, code_grid, mul_grid = self.dense_plan(
-                buckets, self.lf_shapes[c])
+            lf_shape = self.lf_shapes[c]
+            if rect is not None:
+                hs, vs = self.shifts[c]
+                x0, y0, x1, y1 = rect
+                bx0, by0 = (x0 >> hs) // 8, (y0 >> vs) // 8
+                bx1, by1 = -(-(x1 >> hs) // 8), -(-(y1 >> vs) // 8)
+                rect_shape = ((y1 - y0) >> vs, (x1 - x0) >> hs)
+                lf_shape = (by1 - by0, bx1 - bx0)
+                rbuckets = []
+                for b in buckets:
+                    p3 = b.pos3
+                    m = ((p3[:, 0] >= bx0) & (p3[:, 0] < bx1)
+                         & (p3[:, 1] >= by0) & (p3[:, 1] < by1))
+                    if m.any():
+                        sub = p3[m].copy()
+                        sub[:, 0] -= bx0
+                        sub[:, 1] -= by0
+                        rbuckets.append(_Bucket(b.sel, sub, rect_shape,
+                                                lf_shape))
+                buckets = rbuckets
+            entries, code_grid, mul_grid = self.dense_plan(buckets, lf_shape)
             if len(entries) > DENSE_PLAN_MAX_ENTRIES:
                 return None
             matrices = {}
@@ -1105,15 +1140,19 @@ class VardctFrameState:
         return plans, qm_scale
 
     def fused_subsampled_program_parts(self, hf_global: HfGlobal | None,
-                                       copy_inputs: bool = False):
+                                       rect=None, copy_inputs: bool = False):
         """(key, make_fn, inputs) for the fused subsampled program, or
         None when the dense plan overflows (the staged path). `inputs`
         are host numpy arrays, bit-identical to the JAX package's (13 of
         them: per channel coefficients — a sparse (index, value) pair or
         a dense plane, chosen per channel —, LF, code and mul grids, then
         the sigma grid); make_fn(device) builds the torch program. With
-        copy_inputs, dense plane references are copied so that the caller
-        may pool the state's planes."""
+        `rect` (full-resolution plane pixels, group-aligned), every input
+        is cut to the rect at each channel's shift and the program embeds
+        its output at the rect's place in zero planes
+        (jxl_oxide_tpu/render/vardct.py:1394-1460). With copy_inputs,
+        dense plane references are copied so that the caller may pool the
+        state's planes."""
         header = self.header
         quantizer = self.frame.lf_global.vardct.quantizer
         lf_dequant = self.frame.lf_global.lf_dequant
@@ -1123,7 +1162,7 @@ class VardctFrameState:
             float(lf_dequant[c] * precision_scale / scale_inv)
             for c in range(3)
         )
-        planned = self._subsampled_channel_plans(hf_global)
+        planned = self._subsampled_channel_plans(hf_global, rect=rect)
         if planned is None:
             return None
         plans, qm_scale = planned
@@ -1134,9 +1173,18 @@ class VardctFrameState:
         )
         epf_params = rf.epf if rf.epf.enabled else None
         sigma_blocks = self._sigma_blocks_grid()
-        full_shape = (self.height_rounded, self.width_rounded)
-        embed = None
-        plane_shapes = tuple(self.plane_shapes)
+        if rect is not None:
+            x0, y0, x1, y1 = rect
+            full_shape = (y1 - y0, x1 - x0)
+            embed = (self.height_rounded, self.width_rounded, y0, x0)
+            plane_shapes = tuple(((y1 - y0) >> vs, (x1 - x0) >> hs)
+                                 for hs, vs in self.shifts)
+            sigma_blocks = np.ascontiguousarray(
+                sigma_blocks[y0 // 8:-(-y1 // 8), x0 // 8:-(-x1 // 8)])
+        else:
+            full_shape = (self.height_rounded, self.width_rounded)
+            embed = None
+            plane_shapes = tuple(self.plane_shapes)
         entries3 = tuple(p[0] for p in plans)
         matrices3 = tuple(p[3] for p in plans)
 
@@ -1148,6 +1196,14 @@ class VardctFrameState:
         for c in range(3):
             coeff = self.coeff_planes[c]
             lf_q = self.lf_quant_planes[c]
+            if rect is not None:
+                hs, vs = self.shifts[c]
+                x0, y0, x1, y1 = rect
+                coeff = np.ascontiguousarray(
+                    coeff[y0 >> vs:y1 >> vs, x0 >> hs:x1 >> hs])
+                lf_q = np.ascontiguousarray(
+                    lf_q[(y0 >> vs) // 8:-(-(y1 >> vs) // 8),
+                         (x0 >> hs) // 8:-(-(x1 >> hs) // 8)])
             sparse_n = None
             if _native.available():
                 flat = np.ascontiguousarray(coeff.reshape(-1))
@@ -1172,7 +1228,7 @@ class VardctFrameState:
             else:
                 coeff_input = coeff.copy() if copy_inputs else coeff
             sparse_ns.append(sparse_n)
-            if copy_inputs:
+            if copy_inputs and lf_q is self.lf_quant_planes[c]:
                 lf_q = lf_q.copy()
             inputs.extend([coeff_input, lf_q, plans[c][1], plans[c][2]])
         inputs.append(sigma_blocks)
@@ -1216,7 +1272,8 @@ class VardctFrameState:
         return key, make_fn, inputs
 
     @traced("Dequant and transform (subsampled)")
-    def _run_fused_subsampled(self, hf_global: HfGlobal | None, device):
+    def _run_fused_subsampled(self, hf_global: HfGlobal | None, device,
+                              rect=None):
         """Chroma-subsampled frames (do_ycbcr 4:2:0/4:2:2/4:4:0): ONE
         program runs the three per-channel dequant + inverse transform
         pipelines at their stored geometries, then the JPEG triangle
@@ -1224,9 +1281,10 @@ class VardctFrameState:
         (jxl-render/src/vardct/mod.rs:48-385 subsampled path + image.rs:
         448-486 upsample + render.rs filter order); the staged path when
         a dense plan overflows. Output is [3, h, w] at full resolution
-        (still YCbCr); sets chroma_upsampled and filters_applied."""
+        (still YCbCr); sets chroma_upsampled and filters_applied. `rect`
+        restricts the program to a plane rect (ROI pushdown)."""
         out = self._run_program(self.fused_subsampled_program_parts,
-                                hf_global, device)
+                                hf_global, device, rect)
         if out is None:
             return self._run_staged(hf_global, device)
         self.chroma_upsampled = True
@@ -1388,12 +1446,14 @@ class ProgressiveCache:
 
 
 @traced("Render VarDCT")
-def decode_vardct_planes(state: VardctFrameState, hf_global, device) -> list:
-    """The device stage of one VarDCT frame: state.run_device_pipeline,
-    then each plane cropped to the frame sample size at its channel's
-    shift (none where the program upsampled the chroma already), as
-    jxl_oxide_tpu/render/vardct.py decode_vardct_frame crops."""
-    planes = state.run_device_pipeline(hf_global, device)
+def decode_vardct_planes(state: VardctFrameState, hf_global, device,
+                         rect=None) -> list:
+    """The device stage of one VarDCT frame: state.run_device_pipeline
+    (on `rect` only, under a decode region), then each plane cropped to
+    the frame sample size at its channel's shift (none where the program
+    upsampled the chroma already), as jxl_oxide_tpu/render/vardct.py
+    decode_vardct_frame crops."""
+    planes = state.run_device_pipeline(hf_global, device, rect)
     cropped = []
     for c in range(3):
         hs, vs = (0, 0) if state.chroma_upsampled else state.shifts[c]

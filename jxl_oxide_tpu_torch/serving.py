@@ -102,9 +102,10 @@ def _host_stage_fast(img: JxlImage, frame: int):
     per-image path. The envelope: a stream of one frame, keyframe 0 asked
     for (jxl_oxide_tpu/serving.py:127-129: a multi-frame stream
     composites, and goes per image), one VarDCT frame inside the port's
-    envelope (api.py `_check_envelope`: 4:4:4 or chroma-subsampled, at
-    most one integer alpha) with no upsampling, EC upsampling or
-    dim_shift, no LF frame, no splines and no noise, in XYB or an enum
+    envelope (api.py `_check_envelope`: 4:4:4 or chroma-subsampled)
+    whose only extra channel, if any, is one integer alpha at full
+    resolution (the JAX package's `ec_ok`), with no upsampling or EC
+    upsampling, no LF frame, no splines and no noise, in XYB or an enum
     RGB encoding with no ICC leg (no embedded profile, no requested one:
     jxl_oxide_tpu/serving.py:127-142) and no tone map
     that detects the peak (its peak would be the stack's, not the
@@ -118,12 +119,21 @@ def _host_stage_fast(img: JxlImage, frame: int):
     the port's envelope raise JxlNotSupportedError here (the caller
     routes them to the per-image path, which raises it again)."""
     from .headers.frame import Encoding
-    from .headers.image import ColourSpace
+    from .headers.image import ColourSpace, ExtraChannelType
 
     if frame != 0 or img.num_keyframes != 1 or img.num_frames != 1:
         return None
     img._check_envelope([0])
-    enc = img.image_header.metadata.colour_encoding
+    meta = img.image_header.metadata
+    # the stacked program passes one full-resolution integer alpha
+    # through; any other extra channel goes per image
+    # (jxl_oxide_tpu/serving.py:119-126, ec_ok)
+    ec_ok = len(meta.ec_info) <= 1 and all(
+        info.ty == ExtraChannelType.ALPHA and info.dim_shift == 0
+        and not info.bit_depth.is_float for info in meta.ec_info)
+    if not ec_ok:
+        return None
+    enc = meta.colour_encoding
     if (img.requested_icc is not None or enc.want_icc
             or enc.colour_space == ColourSpace.GREY
             or any(op.kind == "tone_map" and op.data["detect_peak"]
@@ -138,8 +148,6 @@ def _host_stage_fast(img: JxlImage, frame: int):
     # goes per image (jxl_oxide_tpu/serving.py:121-125, 146-157)
     if (header.upsampling != 1
             or any(u != 1 for u in header.ec_upsampling)
-            or any(info.dim_shift
-                   for info in img.image_header.metadata.ec_info)
             or header.lf_level != 0
             or flags.use_lf_frame
             or flags.splines
@@ -155,7 +163,8 @@ def _host_stage_fast(img: JxlImage, frame: int):
         return None
     with use_decode_device(img.device):
         host = host_stage(fr)
-    return host.state, host.hf_global, host.frame, host.alpha
+    return (host.state, host.hf_global, host.frame,
+            host.extra[0] if host.extra else None)
 
 
 def _tail_key(img: JxlImage, fr) -> tuple:

@@ -16,7 +16,7 @@ import pytest
 
 import torch_parity as tp
 from encoder import encode_jxl_modular
-from jxl_oxide_tpu_torch import JxlImage, JxlNotSupportedError
+from jxl_oxide_tpu_torch import JxlImage
 from jxl_oxide_tpu_torch.utils import options as opts
 
 
@@ -107,9 +107,10 @@ def test_alpha_host_stage_decodes_the_ec():
     alpha = _rng_alpha(300, 260, 2)
     data = tp.tiled_stream(300, 260, 4, types=[0], alpha=alpha)
     host = tp.torch_host_stage(data)
-    np.testing.assert_array_equal(host.alpha, alpha)
+    (ours,) = host.extra
+    np.testing.assert_array_equal(ours, alpha)
     jax_alpha = _host_stage_fast(JaxImage.from_bytes(data), 0)[3]
-    np.testing.assert_array_equal(host.alpha / np.float32(255), jax_alpha)
+    np.testing.assert_array_equal(ours / np.float32(255), jax_alpha)
 
 
 def test_u8_has_four_channels_exactly_with_alpha():
@@ -162,25 +163,33 @@ def _float_alpha():
     (_float_alpha, "item 17"),
 ])
 def test_out_of_envelope_alpha_raises(make, item):
-    """Alphas outside the envelope raise naming their ROADMAP item. An
-    alpha at a dim_shift (item 9) decodes since the port's seventh slice:
-    its colour within 1 LSB of the JAX package, its alpha bit for bit."""
+    """Alphas that were outside the envelope: an alpha at a dim_shift
+    (item 9) decodes since the port's seventh slice, its colour within 1
+    LSB of the JAX package, its alpha bit for bit; an alpha beside a spot
+    colour and a float alpha (item 17) since its ninth, bit for bit,
+    every extra channel too."""
     data = make()
     if item == "item 9":
         tp.assert_keyframes_match(data, exact=False)
         return
-    img = JxlImage.from_bytes(data, device="cpu")
-    with pytest.raises(JxlNotSupportedError, match=f"ROADMAP .*{item}"):
-        img.render_frame(0)
+    tp.assert_keyframes_match(data, exact=True)
+    np.testing.assert_array_equal(
+        JxlImage.from_bytes(data, device="cpu").render_frame(0)
+        .image_all_channels(),
+        np.asarray(tp.jax_image(data).render_frame(0).image_all_channels()))
 
 
 def test_not_ported_outputs_name_their_items():
+    """The outputs that were not ported: render_frame_cropped (item 14,
+    since the port's ninth slice) cuts the alpha with the colour, and
+    Render.stream (item 9b) writes to_u8()'s samples."""
     data = STREAMS["vardct_128"]()
     img = JxlImage.from_bytes(data, device="cpu")
-    with pytest.raises(JxlNotSupportedError, match="item 14"):
-        img.render_frame_cropped((0, 0, 8, 8))
-    # Render.stream (item 9b) is ported: its samples are to_u8()'s
-    want = img.render_frame(0).to_u8().reshape(-1)
+    full = img.render_frame(0).to_u8()
+    crop = img.render_frame_cropped(0, (3, 5, 40, 30)).to_u8()
+    np.testing.assert_array_equal(crop, full[5:35, 3:43])
+    assert crop.shape == (30, 40, 4)
+    want = full.reshape(-1)
     buf = np.zeros(want.size, np.uint8)
     assert img.render_frame(0).stream().write_to_buffer(buf) == want.size
     np.testing.assert_array_equal(buf, want)

@@ -633,3 +633,69 @@ def test_image_stream_on_cuda(cuda):
         while (n := stream.write_to_buffer(buf)):
             out.append(buf[:n].copy())
         assert np.array_equal(np.concatenate(out), want.reshape(-1))
+
+
+@pytest.mark.parametrize("name,k1,k9,keyframes", tp.EC_FIXTURES)
+def test_extra_channel_fixture_on_cuda(cuda, name, k1, k9, keyframes):
+    """Every keyframe of the extra-channel fixtures on the card: u8
+    within 1 LSB of the reference with the alphas exact, every extra
+    channel bit for bit (ec_mix_1024's f16 alpha leaves the device tail
+    as int32 tensors and converts with its own float bit depth), K1 and
+    K9 launches as stated."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze import inv_squeeze_cuda
+
+    data, u8 = tp.fixture(name)
+    extra = np.load(f"{tp.TESTDATA}/{name}.npz")["extra"]
+    if keyframes == 1:
+        u8, extra = u8[None], extra[None]
+    before = epf_step_cuda.launches, inv_squeeze_cuda.launches
+    img = JxlImage.from_bytes(data, device=cuda)
+    for k in range(keyframes):
+        r = img.render_frame(k)
+        got = r.to_u8()
+        assert tp.max_lsb(got, u8[k]) <= 1
+        assert np.array_equal(got[..., 3], u8[k][..., 3])
+        assert np.array_equal(r.image_all_channels()[..., 3:], extra[k])
+    assert (epf_step_cuda.launches - before[0],
+            inv_squeeze_cuda.launches - before[1]) == (k1, k9)
+
+
+@pytest.mark.parametrize("name", tp.ROI_FIXTURES)
+def test_region_renders_on_cuda(cuda, name):
+    """Each committed region on the card: within 1 LSB of the JAX
+    package's region render, equal to the crop of the card's full
+    render, and each K1 launch on the rect's planes within 2e-5 of the
+    plain version."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda import epf as k1mod
+    from jxl_oxide_tpu_torch.ops.filters import epf_step
+
+    data, _ = tp.fixture(name)
+    ref = np.load(f"{tp.TESTDATA}/{name}_roi.npz")
+    full = JxlImage.from_bytes(data, device=cuda).render_frame(0).to_u8()
+    kernel = k1mod.epf_step_cuda
+    for r, region in enumerate(ref["regions"].tolist()):
+        seen = []
+
+        def watched(*args):
+            seen.append((args[0].clone(), *args[1:]))
+            return kernel(*args)
+
+        k1mod.epf_step_cuda = watched
+        try:
+            got = JxlImage.from_bytes(data, device=cuda).render_frame_cropped(
+                0, region).to_u8()
+        finally:
+            k1mod.epf_step_cuda = kernel
+        left, top, w, h = region
+        assert tp.max_lsb(got, ref[f"u8_{r}"]) <= 1
+        assert np.array_equal(got, full[top:top + h, left:left + w])
+        for args in seen:
+            want = epf_step(*args)
+            assert float((kernel(*args) - want).abs().max()) <= 2e-5

@@ -49,8 +49,8 @@ def test_render_outputs_agree_with_jax():
 
 
 def _cmyk_modular():
-    """CMYK (a Black extra channel): item 17. Greyscale, once item 15
-    here, decodes (tests/test_torch_color_live.py)."""
+    """CMYK (a Black extra channel): item 17, decoded since the port's
+    ninth slice."""
     from encoder import encode_jxl_modular
 
     rng = np.random.default_rng(0)
@@ -64,8 +64,8 @@ def _lf_frame():
 
 
 def _alpha():
-    """An alpha beside a spot colour: more than the one integer alpha that
-    the envelope takes."""
+    """An alpha beside a spot colour: item 17, decoded since the port's
+    ninth slice."""
     from encoder import encode_jxl_modular
 
     rng = np.random.default_rng(2)
@@ -91,15 +91,36 @@ def _alpha_dim_shift():
     (_alpha_dim_shift, "item 9"),
 ])
 def test_outside_the_envelope_raises(make, item):
-    """Streams outside the envelope raise naming their ROADMAP item. LF
-    frames and an alpha at a dim_shift (item 9) decode since the port's
-    seventh slice, within 1 LSB of the JAX package (the alpha exactly)."""
+    """Streams that were outside the envelope: LF frames and an alpha at
+    a dim_shift (item 9) decode since the port's seventh slice, within 1
+    LSB of the JAX package (the alpha exactly); CMYK and a spot colour
+    beside an alpha (item 17) since its ninth, bit for bit, every extra
+    channel too. The two YCbCr layouts of item 7 still raise
+    (test_the_item_7_layouts_raise)."""
     data = make()
     if item == "item 9":
         tp.assert_keyframes_match(data, exact=False)
         return
-    img = JxlImage.from_bytes(data, device="cpu")
-    with pytest.raises(JxlNotSupportedError, match=f"ROADMAP .*{item}"):
+    tp.assert_keyframes_match(data, exact=True)
+    np.testing.assert_array_equal(
+        JxlImage.from_bytes(data, device="cpu").render_frame(0)
+        .image_all_channels(),
+        np.asarray(tp.jax_image(data).render_frame(0).image_all_channels()))
+
+
+@pytest.mark.parametrize("field,value", [("do_ycbcr", True),
+                                         ("jpeg_upsampling", (0, 1, 0))])
+def test_the_item_7_layouts_raise(field, value):
+    """4:4:4 YCbCr VarDCT and chroma-subsampled YCbCr Modular (headers set
+    by hand: no in-repo encoder writes them) raise naming item 7."""
+    if field == "do_ycbcr":
+        img = JxlImage.from_bytes(STREAMS["dct8"](), device="cpu")
+        img._frames[0].header.do_ycbcr = True
+    else:
+        img = JxlImage.from_bytes(_cmyk_modular(), device="cpu")
+        img._frames[0].header.do_ycbcr = True
+        img._frames[0].header.jpeg_upsampling = value
+    with pytest.raises(JxlNotSupportedError, match="ROADMAP .*item 7"):
         img.render_frame(0)
 
 

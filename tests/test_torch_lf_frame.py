@@ -182,10 +182,9 @@ def test_progressive_and_partial_decode_still_raise():
     since the eighth slice (tests/test_torch_progressive.py): on an LF
     stream render_loading_frame composites the LF frame into its slot
     and renders the main frame on it, as render_frame does, and
-    Render.stream writes its samples. ROI still raises, naming item
-    14."""
-    from jxl_oxide_tpu_torch import JxlNotSupportedError
-
+    Render.stream writes its samples. ROI (item 14) is ported since the
+    ninth slice: a frame that sets use_lf_frame decodes whole, then is
+    cut."""
     img = JxlImage.from_bytes(lf_stream(LF_KWARGS[0], seed=35),
                               device="cpu")
     loading = img.render_loading_frame().to_u8()
@@ -193,5 +192,6 @@ def test_progressive_and_partial_decode_still_raise():
     buf = np.zeros(loading.size, np.uint8)
     assert img.render_frame(0).stream().write_to_buffer(buf) == buf.size
     np.testing.assert_array_equal(buf, loading.reshape(-1))
-    with pytest.raises(JxlNotSupportedError, match="ROADMAP .*item 14"):
-        img.render_frame_cropped(0, (0, 0, 8, 8))
+    np.testing.assert_array_equal(
+        img.render_frame_cropped(0, (5, 3, 8, 9)).to_u8(),
+        loading[3:12, 5:13])

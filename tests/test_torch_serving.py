@@ -426,3 +426,57 @@ def test_mixed_feature_batches_equal_per_image(monkeypatch):
             np.testing.assert_array_equal(a, b)
     stacks, routed = _groups(monkeypatch, streams)
     assert stacks == [[0, 2, 4]] and routed == [1, 3]
+
+
+@pytest.mark.parametrize("change", ["spot", "float", "depth", "second_ec",
+                                    "unchanged"])
+def test_extra_channels_other_than_one_alpha_go_per_image(change):
+    """_host_stage_fast stacks one full-resolution integer alpha only (the
+    JAX package's ec_ok, jxl_oxide_tpu/serving.py:119-126): a spot
+    colour, a float alpha, another kind or a second extra channel would
+    pass through the stacked program as if it were that alpha. No
+    in-repo VarDCT encoder writes them, so the parsed image header is
+    changed by hand."""
+    import dataclasses
+
+    from jxl_oxide_tpu_torch.headers.image import ExtraChannelType
+
+    img = JxlImage.from_bytes(tp.vardct_stream(64, 64, 46, epf_iters=1,
+                                               alpha=_alpha(64, 64, 47)),
+                              device="cpu")
+    ec = img.image_header.metadata.ec_info
+    if change == "spot":
+        ec[0].ty = ExtraChannelType.SPOT_COLOUR
+    elif change == "float":
+        ec[0].bit_depth = dataclasses.replace(
+            ec[0].bit_depth, bits_per_sample=16, exp_bits=5)
+    elif change == "depth":
+        ec[0].ty = ExtraChannelType.DEPTH
+    elif change == "second_ec":
+        ec.append(dataclasses.replace(ec[0]))
+    out = serving._host_stage_fast(img, 0)
+    assert (out is not None) == (change == "unchanged")
+
+
+def test_extra_channel_streams_in_a_stacked_batch():
+    """decode_batch_stacked over VarDCT streams that stack beside Modular
+    streams with a spot colour, an f16 alpha, two alphas and CMYK: each
+    result equals its own render_frame(0).to_u8()."""
+    from test_torch_extra_channels import (
+        cmyk,
+        f16_alpha,
+        spot,
+        two_alphas_blend,
+    )
+
+    streams = [tp.vardct_stream(64, 64, 48, epf_iters=1,
+                                alpha=_alpha(64, 64, 49)),
+               spot(), f16_alpha(),
+               tp.vardct_stream(64, 64, 50, epf_iters=1,
+                                alpha=_alpha(64, 64, 51)),
+               two_alphas_blend(), cmyk()]
+    got = decode_batch_stacked(streams, num_workers=2, device="cpu")
+    for data, a in zip(streams, got):
+        img = JxlImage.from_bytes(data, device="cpu")
+        np.testing.assert_array_equal(
+            a, img.render_frame(0).to_u8())

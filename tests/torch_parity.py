@@ -45,6 +45,13 @@ FEATURE_FIXTURES = (("features_up2_1024", 2, 1), ("lf_frame_1024", 2, 0),
 # loading render on the card, fed at the cuts of <name>_progressive.npz
 PROGRESSIVE_FIXTURES = (("flagship_1024", 2, 0), ("passes3_1024", 2, 0),
                         ("modular_1024", 2, 1))
+# the extra-channel fixtures (their .npz hold "extra" too): (name, K1
+# launches, K9 launches of one render_frame on the card, keyframes);
+# ec_mix_1024's squeeze runs on the device tail, with an f16 alpha in it
+EC_FIXTURES = (("ec_mix_1024", 2, 1, 1), ("ec_blend_premul_512", 6, 0, 3))
+# the fixtures whose region renders are committed (<name>_roi.npz)
+ROI_FIXTURES = ("flagship_1024", "ycbcr420_1024", "orient6_512x384",
+                "modular_1024")
 # flagship_1024 under each requested encoding (flagship_1024_requests.npz):
 # the u16 bound of the PQ and HLG renders, in LSB of 65535 (measured on the
 # CPU: 1; chip_smoke.py holds the card's renders to it)

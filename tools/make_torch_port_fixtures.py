@@ -25,6 +25,19 @@ testdata/:
                "sections" (its ProgressiveCache's sections_decoded());
                written with the name "<name>_progressive"
 
+  ec_mix_1024.npz, ec_blend_premul_512.npz
+               besides "u8", "extra": every extra channel of
+               image_all_channels() (float32, [.., H, W, E]; per keyframe
+               for the animation)
+  <name>_roi.npz
+               for each of ROI, jxl_oxide_tpu's render_frame_cropped(0,
+               region).to_u8() for each of its regions (`roi_regions`):
+               "regions" [R, 4] (display-space left, top, width, height)
+               and "u8_<r>"; for flagship_1024 also the loading render at
+               its third progressive cut with the first region set
+               ("loading_cut", "loading_u8"); written with the name
+               "<name>_roi"
+
 The port's chip smoke test and its CPU tests decode the .jxl files with
 jxl_oxide_tpu_torch and compare with the .npz references; a machine
 without JAX needs nothing else.
@@ -409,6 +422,92 @@ def write_requests() -> None:
           + ", ".join(f"{k} {v.shape}" for k, v in out.items()))
 
 
+def smooth_f16(h, w, seed):
+    """A smooth float field in [0, 1] as the integer bit patterns of its
+    f16 samples (a float extra channel's samples)."""
+    field = smooth_rgb(h, w, seed)[:, :, 0]
+    return np.float16(field).view(np.uint16).astype(np.int64)
+
+
+def ec_mix_1024():
+    """Every extra-channel kind on the Modular device tail: smooth colour,
+    an 8-bit alpha, a spot colour (red at solidity 0.5), an f16 alpha and
+    a named depth channel, squeezed, gaborish + 2 EPF passes, LZ77 runs.
+    The unsqueezed 1024^2 planes open the device tail's gate (K9 on the
+    squeezed channel), K1 runs on the colour, the f16 alpha leaves the
+    tail as int32 tensors, and the spot colour mixes in after the
+    filters."""
+    from encoder import encode_jxl_modular
+
+    return encode_jxl_modular(
+        smooth_u8(1024, 1024, 60)
+        + [smooth_alpha(1024, 1024, 61), smooth_alpha(1024, 1024, 62),
+           smooth_f16(1024, 1024, 63), smooth_alpha(1024, 1024, 64)],
+        bit_depth=8, extra_alpha=True, spot_colour=(1.0, 0.0, 0.0, 0.5),
+        extra_channel_specs=[{"ty": 0, "bits": 16, "float_exp_bits": 5},
+                             {"ty": 1, "name": "depth"}],
+        squeeze=True, gabor=True, epf_iters=2, lz77_rle=True)
+
+
+def ec_blend_premul_512():
+    """Three 512^2 frames with an alpha and an associated (premultiplied)
+    second alpha, each after the first blended over slot 1 with alpha
+    channel 1: the colour takes the premultiplied blend, the first alpha
+    mixes as an alpha; gaborish + 2 EPF passes on every frame (K1 2 a
+    frame), LZ77 runs."""
+    from encoder import encode_jxl_modular
+
+    frames = [smooth_u8(512, 512, 65 + 3 * k)
+              + [smooth_alpha(512, 512, 66 + 3 * k),
+                 smooth_alpha(512, 512, 67 + 3 * k)] for k in range(3)]
+    return encode_jxl_modular(
+        frames[0], bit_depth=8, extra_alpha=True,
+        extra_channel_specs=[{"ty": 0, "alpha_associated": True}],
+        animation_frames=frames,
+        animation_blend={"mode": 2, "alpha_channel": 1},
+        gabor=True, epf_iters=2, lz77_rle=True)
+
+
+# the fixtures whose references carry every extra channel
+EXTRA_CHANNELS = ("ec_mix_1024", "ec_blend_premul_512")
+# the streams whose region renders are committed (<name>_roi.npz)
+ROI = ("flagship_1024", "ycbcr420_1024", "orient6_512x384", "modular_1024")
+
+
+def roi_regions(width: int, height: int) -> list:
+    """Display-space regions of a width x height image: one across the
+    first groups, one inside a later group where the image holds it (else
+    one more inside), and one on the right and bottom edges."""
+    second = ((600, 600, 90, 90) if width >= 700 and height >= 700
+              else (200, 300, 90, 90))
+    return [(37, 101, 200, 150), second, (width - 70, height - 40, 70, 40)]
+
+
+def write_roi(name: str) -> None:
+    """<name>_roi.npz from the committed <name>.jxl."""
+    from jxl_oxide_tpu import JxlImage
+
+    with open(os.path.join(OUT_DIR, f"{name}.jxl"), "rb") as f:
+        data = f.read()
+    img = JxlImage.from_bytes(data)
+    regions = roi_regions(img.width, img.height)
+    out = {"regions": np.asarray(regions, np.int64)}
+    for r, region in enumerate(regions):
+        out[f"u8_{r}"] = JxlImage.from_bytes(data).render_frame_cropped(
+            0, region).to_u8()
+    if name == "flagship_1024":
+        cut = progressive_cuts(img._frames[0])[2]
+        loading = JxlImage()
+        loading.set_image_region(*regions[0])
+        loading.feed_bytes(data[:cut])
+        out["loading_cut"] = np.int64(cut)
+        out["loading_u8"] = loading.render_loading_frame().to_u8()
+    np.savez_compressed(os.path.join(OUT_DIR, f"{name}_roi.npz"), **out)
+    print(f"{name}_roi: regions {regions}"
+          + (f", loading render at byte {cut}" if "loading_u8" in out
+             else ""))
+
+
 # the streams whose loading renders are committed (<name>_progressive.npz)
 PROGRESSIVE = ("flagship_1024", "passes3_1024", "modular_1024")
 
@@ -560,6 +659,11 @@ def fixtures() -> dict:
         # on the alpha. One 512^2 group: tools/encoder.py lays a shifted
         # channel out over unshifted groups, which decoders refuse once a
         # frame has several
+        # every extra-channel kind on the device tail (K9, K1 on the
+        # colour, an f16 alpha out of the tail, a spot colour)
+        "ec_mix_1024": ec_mix_1024,
+        # premultiplied blending over alpha channel 1 (K1 2 a frame)
+        "ec_blend_premul_512": ec_blend_premul_512,
         "alpha_shift_512": lambda: encode_jxl_modular(
             smooth_u8(512, 512, 54) + [smooth_alpha(128, 128, 55)],
             bit_depth=8, extra_alpha=True, alpha_dim_shift=2,
@@ -567,16 +671,20 @@ def fixtures() -> dict:
     }
 
 
-def reference_u8(data: bytes) -> np.ndarray:
+def reference(data: bytes, extra: bool = False) -> dict:
     """The JAX package's keyframe 0, or every keyframe stacked when the
-    stream has several."""
+    stream has several: {"u8": to_u8()}, and with `extra` {"extra": the
+    extra channels of image_all_channels()}."""
     from jxl_oxide_tpu import JxlImage
 
     img = JxlImage.from_bytes(data)
-    if img.num_keyframes == 1:
-        return img.render_frame(0).to_u8()
-    return np.stack([img.render_frame(k).to_u8()
-                     for k in range(img.num_keyframes)])
+    renders = [img.render_frame(k) for k in range(img.num_keyframes)]
+    ncolor = len(renders[0].planes)
+    out = {"u8": [r.to_u8() for r in renders]}
+    if extra:
+        out["extra"] = [np.asarray(r.image_all_channels())[..., ncolor:]
+                        for r in renders]
+    return {k: v[0] if len(v) == 1 else np.stack(v) for k, v in out.items()}
 
 
 def main(names) -> None:
@@ -585,12 +693,16 @@ def main(names) -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     makers = fixtures()
     for name in names or [*makers, "flagship_1024_requests",
-                          *(f"{n}_progressive" for n in PROGRESSIVE)]:
+                          *(f"{n}_progressive" for n in PROGRESSIVE),
+                          *(f"{n}_roi" for n in ROI)]:
         if name == "flagship_1024_requests":
             write_requests()
             continue
         if name.endswith("_progressive"):
             write_progressive(name[:-len("_progressive")])
+            continue
+        if name.endswith("_roi"):
+            write_roi(name[:-len("_roi")])
             continue
         data = makers[name]()
         with open(os.path.join(OUT_DIR, f"{name}.jxl"), "wb") as f:
@@ -598,9 +710,10 @@ def main(names) -> None:
         if name in STREAM_ONLY:
             print(f"{name}: {len(data)} B stream")
             continue
-        u8 = reference_u8(data)
-        np.savez_compressed(os.path.join(OUT_DIR, f"{name}.npz"), u8=u8)
-        print(f"{name}: {len(data)} B stream, u8 {u8.shape}")
+        ref = reference(data, extra=name in EXTRA_CHANNELS)
+        np.savez_compressed(os.path.join(OUT_DIR, f"{name}.npz"), **ref)
+        print(f"{name}: {len(data)} B stream, "
+              + ", ".join(f"{k} {v.shape}" for k, v in ref.items()))
 
 
 if __name__ == "__main__":
