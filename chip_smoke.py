@@ -147,7 +147,25 @@ Phases, each fatal (non-zero exit, no "ok" line):
      and K1's plane shape on it logged, each launch held and timed; the
      warm region render against the full render, by span;
      flagship_1024's loading render with a region set against its
-     reference.
+     reference;
+ 12. the front ends (`phase_frontends`, Pillow blocked): the CLI in
+     process (cli.main): decode of flagship_1024 with --num-reps 5 (K1 2
+     launches a rep, the PNG read with zlib alone equal to the card's
+     render_frame(0).to_u8() and within 1 LSB of the reference, the CLI's
+     geomean and MP/s beside a direct decode's and the PNG write's host
+     time), of modular_1024 (K9 1, K1 2), of animation_4f_blend to an APNG
+     (four fcTL chunks with the JAX CLI's delays, each frame its input)
+     and of jbrd_container_256 to npy; `info` on FRONTENDS against the
+     JAX CLI's JSON (frontends.json); `progressive` on flagship_1024 (K1
+     2 a loading render, the final PNG equal to the one-shot decode); the
+     metadata boxes of jbrd_container_256 against the JAX package's
+     payloads, and where the system libbrotlidec loads (the run says
+     whether it does) the brob box, dump-jbrd's bytes against the JAX
+     package's reconstruction and reconstruct_jpeg's host time; `python
+     -m jxl_oxide_tpu_torch info` in a subprocess; --num-devices 2
+     exiting non-zero with the item-13 message; clear_program_caches()
+     lowering torch.cuda.memory_reserved(), then the flagship exact with
+     K1 2.
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
 The squeeze's are ops/cuda/squeeze_measure.py (the probe among them);
@@ -2019,6 +2037,308 @@ def phase_roi(device, probe: dict) -> tuple[dict, dict]:
     return k1_paths, k9_paths
 
 
+# the front ends' fixtures (phase_frontends): each one's `info` JSON from
+# the JAX CLI is committed in frontends.json
+FRONTENDS = ("flagship_1024", "modular_1024", "animation_4f_blend",
+             "jbrd_container_256")
+CLI_REPS = 5
+
+
+def read_png(path: str) -> tuple[list, list]:
+    """The frames ([H, W, C] u8 or u16) and fcTL delays of a PNG or APNG
+    written with filter type None, decoded with zlib alone (the tests'
+    reader, tests/torch_parity.py)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_parity import read_png as read
+
+    got = read(path)
+    return got["frames"], [list(d) for d in got["delays"]]
+
+
+def run_cli(argv) -> tuple[int, str, str, float]:
+    """The port's CLI in process: (exit code, stdout, stderr, wall ms)."""
+    import io
+
+    from jxl_oxide_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue(), (
+        time.perf_counter() - t0) * 1e3
+
+
+def counted_cli(argv) -> tuple:
+    """run_cli with K1's, K9's and K12's launches counted from 0 just
+    before and read just after, and K1's and K9's launches captured:
+    (exit code, stdout, stderr, wall ms, counts, K1 args, K9 args)."""
+    reset_counts()
+    with capturing_kernels() as (eps, sqs):
+        rc, out, err, ms = run_cli(argv)
+    return rc, out, err, ms, read_counts(), eps, sqs
+
+
+def phase_frontends(device, probe: dict) -> tuple[dict, dict]:
+    """The front ends on the card (this slice's path), Pillow blocked:
+    the CLI's decode of flagship_1024 with --num-reps 5 (K1 2 a rep, the
+    PNG read with zlib alone equal to render_frame(0).to_u8() on the card
+    and within 1 LSB of the reference, the CLI's MP/s beside a direct
+    decode's), of modular_1024 (K9 1, K1 2, equal to the card's decode),
+    animation_4f_blend to an APNG (four fcTL chunks with the JAX CLI's
+    delays, each frame its seeded input) and jbrd_container_256 to npy;
+    `info` on each of FRONTENDS against the JAX CLI's committed JSON;
+    `progressive` on flagship_1024 (K1 2 a loading render, the final PNG
+    equal to the one-shot decode); the metadata boxes, dump-jbrd and
+    reconstruct_jpeg's host time on jbrd_container_256 (the brob and jbrd
+    legs only where libbrotlidec loads, which the run reports); `python
+    -m jxl_oxide_tpu_torch info` in a subprocess; --num-devices exiting
+    non-zero with the item-13 message; clear_program_caches() lowering
+    torch.cuda.memory_reserved(), then the flagship again exact with K1
+    2. Returns K1's and K9's rows of the CLI paths."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from jxl_oxide_tpu_torch import JxlImage, clear_program_caches
+    from jxl_oxide_tpu_torch.io.png import write_png
+    from jxl_oxide_tpu_torch.ops.cuda import epf_measure as em
+    from jxl_oxide_tpu_torch.utils import brotli
+
+    tdir = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata")
+    with open(os.path.join(tdir, "frontends.json")) as f:
+        committed = json.load(f)
+    k1_paths, k9_paths = {}, {}
+    pil = sys.modules.get("PIL")
+    sys.modules["PIL"] = None  # an import of Pillow raises ImportError
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            flag = os.path.join(tdir, "flagship_1024.jxl")
+            data, ref = read_fixture("flagship_1024")
+            full = JxlImage.from_bytes(data).render_frame(0).to_u8()
+            out = os.path.join(tmp, "flagship.png")
+            rc, _, err, wall, got, eps, _ = counted_cli(
+                ["decode", flag, "-o", out, "--num-reps", str(CLI_REPS)])
+            png = read_png(out)[0][0]
+            log(f"CLI decode flagship_1024 x{CLI_REPS}: rc {rc}, launches "
+                f"K1 {got[0]}, K9 {got[1]}, K12 {got[2]} (wanted "
+                f"{2 * CLI_REPS}, 0, 0); PNG {png.shape} equal to the "
+                f"card's render_frame(0).to_u8() "
+                f"{bool(np.array_equal(png, full))}, max |PNG - reference| "
+                f"{max_lsb(png, ref)}; {err.strip()}")
+            if (rc or got != (2 * CLI_REPS, 0, 0)
+                    or not np.array_equal(png, full) or max_lsb(png, ref) > 1):
+                raise AssertionError("CLI decode of flagship_1024")
+            m = re.search(r"geomean ([0-9.]+) ms \(range ([0-9.]+)\.\."
+                          r"([0-9.]+) ms\), ([0-9.]+) MP/s", err)
+            cli_ms, cli_mps = float(m.group(1)), float(m.group(4))
+
+            def direct():
+                img = JxlImage.from_bytes(data)
+                img.render_frame(0)
+                torch.cuda.synchronize()
+
+            times = []
+            for _ in range(CLI_REPS):
+                t0 = time.perf_counter()
+                direct()
+                times.append(time.perf_counter() - t0)
+            direct_ms = float(np.exp(np.mean(np.log(times)))) * 1e3
+            t0 = time.perf_counter()
+            write_png(os.path.join(tmp, "again.png"), full)
+            png_ms = (time.perf_counter() - t0) * 1e3
+            log(f"CLI decode flagship_1024 on {em.card()}: geomean "
+                f"{cli_ms:.2f} ms a rep ({cli_mps:.2f} MP/s; range "
+                f"{m.group(2)}..{m.group(3)} ms) against from_bytes + "
+                f"render_frame(0) + synchronize alone {direct_ms:.2f} ms "
+                f"(geomean of {CLI_REPS}, {1.048576 / direct_ms * 1e3:.2f} "
+                f"MP/s); the whole CLI call {wall:.1f} ms, of which writing "
+                f"the PNG about {png_ms:.1f} ms (write_png of a 1024^2 u8 "
+                "image, host)")
+            row = pass_rows("CLI decode flagship_1024", eps[-2:])
+            row["max_abs_err"] = max([row["max_abs_err"]]
+                                     + [check_kernel(*a) for a in eps])
+            k1_paths["CLI decode flagship_1024"] = {
+                "launches": got[0], "reps": CLI_REPS, "cli_ms": cli_ms,
+                "cli_mp_s": cli_mps, "direct_ms": direct_ms, **row}
+
+            data, ref = read_fixture("modular_1024")
+            card = JxlImage.from_bytes(data).render_frame(0).to_u8()
+            out = os.path.join(tmp, "modular.png")
+            rc, _, _, _, got, eps, sqs = counted_cli(
+                ["decode", os.path.join(tdir, "modular_1024.jxl"), "-o", out])
+            png = read_png(out)[0][0]
+            log(f"CLI decode modular_1024: rc {rc}, launches K1 {got[0]}, "
+                f"K9 {got[1]}, K12 {got[2]} (wanted 2, 1, 0); PNG equal to "
+                f"the card's decode {bool(np.array_equal(png, card))}, max "
+                f"|PNG - reference| {max_lsb(png, ref)}")
+            if (rc or got != (2, 1, 0) or not np.array_equal(png, card)
+                    or max_lsb(png, ref) > 1):
+                raise AssertionError("CLI decode of modular_1024")
+            k1_paths["CLI decode modular_1024"] = {
+                "launches": got[0], **pass_rows("CLI decode modular_1024",
+                                                eps)}
+            k9_paths["CLI decode modular_1024"] = {
+                "launches": got[1],
+                **squeeze_row("CLI decode modular_1024", sqs, probe)}
+
+            out = os.path.join(tmp, "anim.png")
+            rc, _, _, _, got, _, _ = counted_cli(
+                ["decode", os.path.join(tdir, "animation_4f_blend.jxl"),
+                 "-o", out])
+            frames, delays = read_png(out)
+            want = animation_4f_frames()
+            equal = [bool(np.array_equal(a, b)) for a, b in zip(frames,
+                                                                want)]
+            log(f"CLI decode animation_4f_blend to APNG: rc {rc}, "
+                f"{len(frames)} frames equal to the input frames {equal}, "
+                f"fcTL delays {delays} (the JAX CLI's "
+                f"{committed['apng_delays']['animation_4f_blend']}), "
+                f"launches {got}")
+            if (rc or len(frames) != 4 or not all(equal) or delays
+                    != committed["apng_delays"]["animation_4f_blend"]):
+                raise AssertionError("CLI APNG of animation_4f_blend")
+
+            data, ref = read_fixture("jbrd_container_256")
+            jpath = os.path.join(tdir, "jbrd_container_256.jxl")
+            out = os.path.join(tmp, "jbrd.npy")
+            rc, _, _, _, got, _, _ = counted_cli(
+                ["decode", jpath, "--output-format", "npy", "-o", out])
+            arr = np.load(out)
+            allc = JxlImage.from_bytes(data).render_frame(0)\
+                .image_all_channels()
+            u8 = np.clip(np.round(arr[0] * 255), 0, 255).astype(np.uint8)
+            log(f"CLI decode jbrd_container_256 to npy: rc {rc}, "
+                f"{arr.shape} {arr.dtype}, equal to image_all_channels() "
+                f"{bool(np.array_equal(arr[0], allc))}, max |u8 - "
+                f"reference| {max_lsb(u8, ref)}, launches {got}")
+            if (rc or arr.shape != (1, 256, 256, 3)
+                    or not np.array_equal(arr[0], allc)
+                    or max_lsb(u8, ref) > 1):
+                raise AssertionError("CLI npy of jbrd_container_256")
+
+            for name in FRONTENDS:
+                rc, stdout, _, _ = run_cli(
+                    ["info", os.path.join(tdir, f"{name}.jxl")])
+                same = rc == 0 and json.loads(stdout) == committed["info"][
+                    name]
+                log(f"CLI info {name}: equal to the JAX CLI's {same}")
+                if not same:
+                    raise AssertionError(f"CLI info of {name}")
+
+            k1_per_render = []
+            render_loading = JxlImage.render_loading_frame
+
+            def counted_loading(self):
+                # a render that raises (not renderable yet) is not counted
+                before = read_counts()[0]
+                r = render_loading(self)
+                k1_per_render.append(read_counts()[0] - before)
+                return r
+
+            prefix = os.path.join(tmp, "prog")
+            reset_counts()
+            JxlImage.render_loading_frame = counted_loading
+            try:
+                rc, _, err, _ = run_cli(["progressive", flag, "-o", prefix])
+            finally:
+                JxlImage.render_loading_frame = render_loading
+            got = read_counts()
+            written = sorted(f for f in os.listdir(tmp)
+                             if f.startswith("prog-"))
+            final = read_png(prefix + "-final.png")[0][0]
+            log(f"CLI progressive flagship_1024: rc {rc}, {len(written)} "
+                f"PNGs, K1 launches per loading render {k1_per_render} "
+                f"(2 each), all {got[0]}; final equal to the one-shot decode "
+                f"{bool(np.array_equal(final, full))}")
+            if (rc or not k1_per_render or any(k != 2 for k in k1_per_render)
+                    or not np.array_equal(final, full)):
+                raise AssertionError("CLI progressive of flagship_1024")
+
+            refz = np.load(os.path.join(tdir, "jbrd_container_256.npz"))
+            img = JxlImage.from_bytes(data)
+            checks = {
+                "Exif": img.aux_box(b"Exif") == refz["exif"].tobytes(),
+                "raw_exif_data": img.raw_exif_data == refz[
+                    "raw_exif"].tobytes(),
+                "hdr_gain_map": img.hdr_gain_map == refz["jhgm"].tobytes(),
+                "jpeg_reconstruction_available":
+                    img.jpeg_reconstruction_available,
+            }
+            has_brotli = brotli.available()
+            if has_brotli:
+                checks["raw_xmp (brob)"] = img.raw_xmp == refz[
+                    "xmp"].tobytes()
+                out = os.path.join(tmp, "x.jpg")
+                rc, _, _, _ = run_cli(["dump-jbrd", jpath, "-o", out])
+                with open(out, "rb") as f:
+                    checks["dump-jbrd"] = rc == 0 and f.read() == refz[
+                        "jpeg"].tobytes()
+                rec_ms = []
+                for _ in range(5):
+                    fresh = JxlImage.from_bytes(data)
+                    t0 = time.perf_counter()
+                    fresh.reconstruct_jpeg()
+                    rec_ms.append((time.perf_counter() - t0) * 1e3)
+                log(f"reconstruct_jpeg of jbrd_container_256 (256^2, host "
+                    f"work): median of 5 {statistics.median(rec_ms):.2f} ms "
+                    f"(range {min(rec_ms):.2f}..{max(rec_ms):.2f})")
+            else:
+                log(f"{brotli.LIBRARY} is absent on this host: the brob "
+                    "(raw_xmp) and jbrd (dump-jbrd, reconstruct_jpeg) legs "
+                    "did not run")
+            log(f"metadata of jbrd_container_256 against the JAX "
+                f"package's committed payloads: {checks}; "
+                f"{brotli.LIBRARY} loads: {has_brotli}")
+            if not all(checks.values()):
+                raise AssertionError("metadata of jbrd_container_256")
+
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "jxl_oxide_tpu_torch", "info", jpath],
+                cwd=REPO, capture_output=True, text=True, timeout=300)
+            same = res.returncode == 0 and json.loads(res.stdout) == \
+                committed["info"]["jbrd_container_256"]
+            log(f"python -m jxl_oxide_tpu_torch info jbrd_container_256: rc "
+                f"{res.returncode}, equal to the JAX CLI's {same} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            if not same:
+                raise AssertionError(f"python -m: {res.stderr[-2000:]}")
+
+            rc, _, err, _ = run_cli(["decode", flag, "--num-devices", "2"])
+            log(f"CLI decode --num-devices 2: rc {rc}, {err.strip()}")
+            if rc == 0 or "item 13" not in err:
+                raise AssertionError("--num-devices did not refuse")
+
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        allocated = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        clear_program_caches()
+        clear_ms = (time.perf_counter() - t0) * 1e3
+        after = torch.cuda.memory_reserved()
+        allocated_after = torch.cuda.memory_allocated()
+        data, ref = read_fixture("flagship_1024")
+        reset_counts()
+        u8 = JxlImage.from_bytes(data).render_frame(0).to_u8()
+        got = read_counts()
+        log(f"clear_program_caches ({clear_ms:.1f} ms): memory_reserved "
+            f"{reserved / 2**20:.1f} -> {after / 2**20:.1f} MiB, "
+            f"memory_allocated {allocated / 2**20:.1f} -> "
+            f"{allocated_after / 2**20:.1f} MiB; the flagship again: equal "
+            f"{bool(np.array_equal(u8, full))}, launches {got}")
+        if (after >= reserved or got != (2, 0, 0)
+                or not np.array_equal(u8, full)):
+            raise AssertionError("clear_program_caches")
+    finally:
+        if pil is None:
+            sys.modules.pop("PIL", None)
+        else:
+            sys.modules["PIL"] = pil
+    return k1_paths, k9_paths
+
+
 def main() -> int:
     try:
         import torch
@@ -2059,6 +2379,8 @@ def main() -> int:
     report["paths"].update(ec_k1)
     roi_k1, roi_k9 = phase_roi(device, probe)
     report["paths"].update(roi_k1)
+    frontend_k1, frontend_k9 = phase_frontends(device, probe)
+    report["paths"].update(frontend_k1)
     report["max_abs_err"] = max([report["max_abs_err"], worst]
                                 + [p["max_abs_err"]
                                    for p in report["paths"].values()])
@@ -2077,7 +2399,7 @@ def main() -> int:
         "library_ms": None,
         "pyramid": pyramid,
         "paths": {MODULAR_PATH: squeeze_paths[MODULAR_PATH], **color_k9,
-                  **progressive_k9, **ec_k9, **roi_k9},
+                  **progressive_k9, **ec_k9, **roi_k9, **frontend_k9},
     }
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [report, squeeze, noise]}))

@@ -17,12 +17,18 @@ decode_batch, decode_iter and decode_batch_stacked (serving.py) decode
 many streams at once; the last runs same-geometry VarDCT streams as one
 stacked program. The envelope: any number of frames, VarDCT (4:4:4 or
 chroma-subsampled) or lossless Modular, any extra channels, any colour
-encoding and EXIF orientation (see ROADMAP.md).
+encoding and EXIF orientation (see ROADMAP.md). The metadata boxes
+(raw_exif_data, raw_xmp, hdr_gain_map, aux_box) and reconstruct_jpeg()
+are host work; clear_program_caches() releases the cached programs. The
+front ends: the CLI (`python -m jxl_oxide_tpu_torch decode x.jxl -o
+x.png`, cli.py), the PNG/APNG writer (io/png.py) and the Pillow plugin
+(integration.py).
 """
 
-from .api import JxlImage, Render
+from .api import JxlImage, Render, clear_program_caches
 from .serving import decode_batch, decode_batch_stacked, decode_iter
 from .utils.errors import JxlError, JxlNotSupportedError
 
 __all__ = ["JxlImage", "Render", "JxlError", "JxlNotSupportedError",
-           "decode_batch", "decode_batch_stacked", "decode_iter"]
+           "clear_program_caches", "decode_batch", "decode_batch_stacked",
+           "decode_iter"]

@@ -87,10 +87,10 @@ from .utils.errors import (
     JxlNotSupportedError,
     JxlValidationError,
 )
-from .utils.options import use_decode_device
+from .utils.options import use_decode_device, use_force_wide
 from .utils.trace import span
 
-__all__ = ["ImageStream", "JxlImage", "Render"]
+__all__ = ["ImageStream", "JxlImage", "Render", "clear_program_caches"]
 
 
 # EXIF orientation 1-8 as the flips of the coded plane (1-4) or of its
@@ -331,8 +331,14 @@ class JxlImage:
     canvases; the reference's AllocTracker) and the keyframe cache."""
 
     def __init__(self, device=None, num_threads: int | None = None,
-                 approx_memory_limit: int | None = None):
+                 approx_memory_limit: int | None = None,
+                 force_wide_buffers: bool = False):
         self.device = resolve_device(device)
+        # force_wide_buffers disables the narrow (i16) modular sample
+        # lane even when modular_16bit_buffers is set in the header
+        # (JxlImageBuilder, lib.rs:199-234; sample.rs:4-36); the output is
+        # the same either way
+        self._force_wide = bool(force_wide_buffers)
         if num_threads is not None:
             from .utils.threads import set_num_threads
 
@@ -341,6 +347,11 @@ class JxlImage:
                          if approx_memory_limit else None)
         self._parser = ContainerParser()
         self._codestream = bytearray()
+        # aux boxes in stream order: (type, payload, brob-wrapped)
+        self._aux_boxes: list[tuple[bytes, bytes, bool]] = []
+        self._aux_current: list[bytes] | None = None
+        self._aux_type: bytes = b""
+        self._aux_brotli = False
         self.image_header: ImageHeader | None = None
         self.embedded_icc: bytes | None = None
         self._frames: list[Frame] = []
@@ -392,10 +403,21 @@ class JxlImage:
         self._load_frames(tolerate_truncation=False)
 
     def _handle_event(self, ev) -> None:
-        # aux boxes (Exif, XMP, jbrd) are not kept: JPEG reconstruction
-        # and metadata access are not ported yet (ROADMAP Queue 1 item 14)
         if ev.kind == "codestream":
             self._codestream += ev.data
+        elif ev.kind == "aux_start":
+            self._aux_current = []
+            self._aux_type = ev.box_type
+            self._aux_brotli = bool(ev.brotli)
+        elif ev.kind == "aux_data":
+            if self._aux_current is not None:
+                self._aux_current.append(ev.data)
+        elif ev.kind == "aux_end":
+            if self._aux_current is not None:
+                self._aux_boxes.append((self._aux_type,
+                                        b"".join(self._aux_current),
+                                        self._aux_brotli))
+                self._aux_current = None
 
     def _try_init(self) -> None:
         if self.image_header is not None:
@@ -585,6 +607,67 @@ class JxlImage:
 
     def set_cms(self, cms) -> None:
         self._cms = cms
+
+    # -- aux boxes, JPEG reconstruction (jxl_oxide_tpu/api.py:570-627) ------
+
+    def aux_box(self, box_type: bytes) -> bytes | None:
+        """Payload of the first aux box of the given type; a brob-wrapped
+        box (the container parser names it by its inner type)
+        decompresses transparently (aux_box.rs brob handling), which needs
+        the system libbrotlidec (utils/brotli.py)."""
+        for ty, payload, is_brotli in self._aux_boxes:
+            if ty != box_type:
+                continue
+            if is_brotli:
+                from .utils.brotli import brotli_decompress
+
+                return brotli_decompress(payload)
+            return payload
+        return None
+
+    @property
+    def raw_exif_data(self) -> bytes | None:
+        """Exif payload with the 4-byte tiff-offset header stripped
+        (aux_box.rs raw_exif)."""
+        exif = self.aux_box(b"Exif")
+        if exif is None:
+            return None
+        return exif[4:] if len(exif) >= 4 else b""
+
+    @property
+    def raw_xmp(self) -> bytes | None:
+        """XMP metadata from the 'xml ' box (aux_box.rs)."""
+        return self.aux_box(b"xml ")
+
+    @property
+    def hdr_gain_map(self) -> bytes | None:
+        """Raw HDR gain map payload ('jhgm' box,
+        container/box_header.rs:115)."""
+        return self.aux_box(b"jhgm")
+
+    @property
+    def jpeg_reconstruction_available(self) -> bool:
+        return self.aux_box(b"jbrd") is not None
+
+    def reconstruct_jpeg(self) -> bytes:
+        """The original JPEG byte stream, rebuilt from the jbrd box and the
+        first frame's quantized coefficients (jxl-oxide lib.rs:860-904).
+        Host work only: the coefficients come from the frame's host
+        entropy stage (jbr/ `reconstruct_jpeg`), never from the device or
+        a render; the frame need not be in the render envelope."""
+        from .jbr import JpegBitstreamData, reconstruct_jpeg
+
+        jbrd_payload = self.aux_box(b"jbrd")
+        if jbrd_payload is None:
+            raise JxlError("no jbrd box present")
+        jbrd = JpegBitstreamData(jbrd_payload)
+        if not self._frames:
+            raise JxlError("no frame available")
+        exif = self.raw_exif_data or b""
+        xmp = self.raw_xmp or b""
+        icc = self.embedded_icc or b""
+        return reconstruct_jpeg(jbrd, self._frames[0], icc=icc, exif=exif,
+                                xmp=xmp)
 
     # -- the envelope -------------------------------------------------------
 
@@ -904,7 +987,8 @@ class JxlImage:
             if h.flags.use_lf_frame:
                 last_lf_read[h.lf_level] = i
         with use_tracker(self._tracker), use_decode_device(self.device), \
-                use_decode_region(self._coded_region()):
+                use_decode_region(self._coded_region()), \
+                use_force_wide(self._force_wide):
             ctx = RenderContext(self.image_header, self.device)
             # seed events in timeline order: each applies just before the
             # first cone frame after its writer's position
@@ -1044,7 +1128,8 @@ class JxlImage:
             raise JxlEofError("no frame data buffered yet")
         from .render.vardct import ProgressiveCache
 
-        with use_tracker(self._tracker), use_decode_device(self.device):
+        with use_tracker(self._tracker), use_decode_device(self.device), \
+                use_force_wide(self._force_wide):
             if self._progressive_ctx is None:
                 self._progressive_ctx = RenderContext(self.image_header,
                                                       self.device)
@@ -1091,3 +1176,36 @@ class JxlImage:
                 frame._lf_frame_planes = None
             return self._postprocess(ctx.composite_partial(fr, frame),
                                      crop=self._image_region)
+
+
+def clear_program_caches() -> None:
+    """Release the port's process-wide caches (jxl_oxide_tpu/api.py
+    clear_program_caches): the fused programs (render/vardct.py
+    `VardctFrameState._fused_cache`) and decode_batch_stacked's stacked
+    ones, the plane pool, the colour transforms, the device tables
+    (ops/varblock.py `device_const`) and the lru_cached host tables of
+    ops/dct.py, ops/upsample.py and ops/varblock.py; then, after a garbage
+    collection (device tensors held only by reference cycles, such as a
+    dropped image's, come free there), the CUDA caching allocator's free
+    blocks. A long-running process that decodes many streams of different
+    geometries calls it now and then; a decode after it builds what it
+    needs again and gives the same output."""
+    import gc
+
+    from .ops import dct, upsample, varblock
+    from .render import vardct
+    from .serving import decode_batch_stacked
+
+    vardct.VardctFrameState._fused_cache.clear()
+    decode_batch_stacked.__dict__.pop("_cache", None)
+    with vardct._PLANE_POOL_LOCK:
+        vardct._PLANE_POOL.clear()
+    JxlImage._ct_cache.clear()
+    varblock._CONST_CACHE.clear()
+    for fn in (dct.dct_basis_forward, dct.dct_basis_inverse,
+               upsample._kernels_cached, varblock.scale_f_map,
+               varblock.special_lowrank_factors):
+        fn.cache_clear()
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()

@@ -56,7 +56,8 @@ from ..utils.options import use_decode_device
 from ..utils.trace import span, traced
 
 __all__ = ["FrameRender", "HostStage", "ModularHostStage",
-           "apply_frame_upsampling", "device_stage", "extra_channel_planes",
+           "apply_frame_upsampling", "coefficient_host_stage",
+           "device_stage", "extra_channel_planes",
            "host_stage", "partial_host_stage", "render_frame",
            "render_modular_tail", "render_vardct_tail",
            "upsample_ec_to_color"]
@@ -319,7 +320,21 @@ def _host_tail_if_selected(modular, fr) -> ModularHostStage:
     return ModularHostStage(modular, chans, fr)
 
 
-def _vardct_host_stage(fr) -> HostStage:
+def coefficient_host_stage(frame) -> HostStage:
+    """The host entropy stage of a VarDCT frame for JPEG reconstruction
+    (jbr/ `reconstruct_jpeg`; the counterpart of jxl_oxide_tpu/render/
+    vardct.py `decode_vardct_frame(frame, keep_coeffs=True)`, without its
+    device pipeline): every section decodes into a state whose quantized
+    coefficient and LF-quant planes ([x, y, b]) are its own, never taken
+    from or given back to the plane pool, and stay; no device stage runs,
+    and no envelope is checked. A render before or after is unaffected:
+    each host stage parses the frame's LfGlobal afresh."""
+    if frame.header.encoding != Encoding.VARDCT:
+        raise ValueError("not a VarDCT frame")
+    return _vardct_host_stage(frame, keep_coeffs=True)
+
+
+def _vardct_host_stage(fr, keep_coeffs: bool = False) -> HostStage:
     from .roi import device_rect, frame_supports_roi, get_decode_region
     from .vardct import HfGlobal, VardctFrameState, parse_lf_group
 
@@ -329,7 +344,7 @@ def _vardct_host_stage(fr) -> HostStage:
     fr.lf_global = None
     lf_global = fr.parse_lf_global()
     gmod = lf_global.gmodular
-    roi = get_decode_region()
+    roi = None if keep_coeffs else get_decode_region()
     if roi is not None and not frame_supports_roi(fr):
         roi = None
     # a VarDCT frame's modular image holds its extra channels only; their
@@ -341,7 +356,7 @@ def _vardct_host_stage(fr) -> HostStage:
     else:
         mlf_groups, pass_groups = {}, [{}]
 
-    state = VardctFrameState(fr)
+    state = VardctFrameState(fr, pooled=not keep_coeffs)
     if fr.toc.is_single_entry:
         bs = fr._single_bs
         state.place_lf_group(0, parse_lf_group(
@@ -357,7 +372,7 @@ def _vardct_host_stage(fr) -> HostStage:
                                             (mlf_groups, pass_groups),
                                             roi=roi)
     extra = []
-    if modular is not None:
+    if modular is not None and not keep_coeffs:
         extra = list(modular.finish()[gmod.extra_channel_from:])
     rect = device_rect(fr, state, roi) if roi is not None else None
     return HostStage(state, hf_global, fr, extra, rect=rect)

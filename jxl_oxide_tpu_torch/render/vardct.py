@@ -325,7 +325,7 @@ class VardctFrameState:
     """Whole-frame VarDCT decode state: LF planes, coefficient planes, and
     per-frame varblock plan feeding the device pipeline."""
 
-    def __init__(self, frame):
+    def __init__(self, frame, pooled: bool = True):
         self.frame = frame
         header = frame.header
         self.header = header
@@ -374,9 +374,17 @@ class VardctFrameState:
         # pre-faulted parallel zero-fill (pooled: recycled pages skip the
         # page faults entirely): a fresh 1024^2 frame allocates ~16 MB of
         # coefficient planes, and lazy calloc pages would fault serially
-        # inside the decode's write path
-        self.lf_quant_planes = _pool_acquire(tuple(self.lf_shapes))
-        self.coeff_planes = _pool_acquire(tuple(self.plane_shapes))
+        # inside the decode's write path. An unpooled state (the JPEG
+        # reconstruction's, which keeps its planes) takes fresh ones
+        if pooled:
+            self.lf_quant_planes = _pool_acquire(tuple(self.lf_shapes))
+            self.coeff_planes = _pool_acquire(tuple(self.plane_shapes))
+        else:
+            from .. import native as _native
+
+            self.lf_quant_planes = _native.zeroed_planes(list(self.lf_shapes))
+            self.coeff_planes = _native.zeroed_planes(
+                list(self.plane_shapes))
         # set by the fused 4:4:4 path, whose device inputs are COPIES of
         # the planes; gates recycling in trim_coeff_planes
         self._planes_poolable = False

@@ -17,9 +17,23 @@ import logging
 import os
 import time
 
-__all__ = ["span", "traced", "logger"]
+__all__ = ["logger", "set_verbosity", "span", "traced"]
 
 logger = logging.getLogger("jxl_oxide_tpu_torch")
+_configured = False
+
+
+def set_verbosity(level: int) -> None:
+    """The CLI's -v: 0 = warnings, 1 or more = the DEBUG span records on
+    stderr (jxl_oxide_tpu/utils/trace.py set_verbosity)."""
+    global _configured
+    if not _configured:
+        handler = logging.StreamHandler()
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)s %(name)s: %(message)s"))
+        logger.addHandler(handler)
+        _configured = True
+    logger.setLevel(logging.WARNING if level <= 0 else logging.DEBUG)
 
 
 _FORCE_ANNOTATE = os.environ.get("JXL_TPU_TRACE_ANNOTATE", "") == "1"

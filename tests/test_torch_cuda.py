@@ -699,3 +699,50 @@ def test_region_renders_on_cuda(cuda, name):
         for args in seen:
             want = epf_step(*args)
             assert float((kernel(*args) - want).abs().max()) <= 2e-5
+
+
+def test_cli_decode_on_cuda(cuda, tmp_path):
+    """The CLI's decode of the main path on the card (its default device):
+    K1 2 launches a rep, the PNG (read with zlib alone) equal to
+    render_frame(0).to_u8() on the card and within 1 LSB of the
+    reference."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage, cli
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+
+    data, ref = tp.fixture("flagship_1024")
+    out = str(tmp_path / "x.png")
+    before = epf_step_cuda.launches
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        rc = cli.main(["decode", f"{tp.TESTDATA}/flagship_1024.jxl", "-o",
+                       out, "--num-reps", "2"])
+    assert rc == 0 and "MP/s" in err.getvalue()
+    assert epf_step_cuda.launches - before == 4
+    png = tp.read_png(out)["frames"][0]
+    assert np.array_equal(png, JxlImage.from_bytes(data).render_frame(0)
+                          .to_u8())
+    assert tp.max_lsb(png, ref) <= 1
+
+
+def test_clear_program_caches_on_cuda(cuda):
+    """clear_program_caches gives the caching allocator's free blocks
+    back (memory_reserved falls), and the next decode is the same."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage, clear_program_caches
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+
+    data, _ = tp.fixture("flagship_1024")
+    first = JxlImage.from_bytes(data).render_frame(0).to_u8()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    clear_program_caches()
+    assert torch.cuda.memory_reserved() < reserved
+    before = epf_step_cuda.launches
+    again = JxlImage.from_bytes(data).render_frame(0).to_u8()
+    assert epf_step_cuda.launches - before == 2
+    assert np.array_equal(first, again)

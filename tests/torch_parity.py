@@ -9,7 +9,9 @@ used as they are.
 from __future__ import annotations
 
 import os
+import struct
 import sys
+import zlib
 
 import numpy as np
 
@@ -264,3 +266,42 @@ def assert_keyframes_match(data, exact=True, order=None):
             np.testing.assert_array_equal(u8[..., 3], want[..., 3])
         assert (a.name, a.duration) == (b.name, b.duration)
     return ours
+
+
+def read_png(path) -> dict:
+    """The chunks of a PNG or APNG written with filter type None: the
+    frames' samples ([H, W, C], u8 or u16), the iCCP profile and the
+    fcTL delays, decoded with zlib alone."""
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, frames, cur, delays, icc = 8, [], [], [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        assert zlib.crc32(tag + body) == struct.unpack(
+            ">I", data[pos + 8 + n:pos + 12 + n])[0]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+        elif tag == b"iCCP":
+            icc = zlib.decompress(body[body.index(b"\0") + 2:])
+        elif tag == b"fcTL":
+            if cur:
+                frames.append(b"".join(cur))
+                cur = []
+            delays.append(struct.unpack(">HH", body[20:24]))
+        elif tag == b"IDAT":
+            cur.append(body)
+        elif tag == b"fdAT":
+            cur.append(body[4:])
+        pos += 12 + n
+    frames.append(b"".join(cur))
+    c = {0: 1, 4: 2, 2: 3, 6: 4}[ctype]
+    dt = np.dtype(">u2") if depth == 16 else np.dtype(np.uint8)
+    out = []
+    for raw in frames:
+        rows = np.frombuffer(zlib.decompress(raw), np.uint8).reshape(h, -1)
+        assert not rows[:, 0].any(), "filter type None"
+        out.append(rows[:, 1:].copy().view(dt).reshape(h, w, c)
+                   .astype(dt.newbyteorder("=")))
+    return {"frames": out, "icc": icc, "delays": delays}

@@ -557,6 +557,191 @@ def write_progressive(name: str) -> None:
     print(f"{name}_progressive: cuts {cuts}, sections {sections}")
 
 
+def jbrd_box_444(exif_len: int, xmp_len: int, comment: bytes,
+                 tail: bytes) -> bytes:
+    """A jbrd box (header + brotli-compressed data stream) for a
+    3-component sequential JPEG: tests/test_jbr.py make_jbrd_box_color_420
+    with components R, G and B, an Exif and an XMP APP1 marker, a comment
+    and tail data. The box
+    carries no sampling factors; the frame's jpeg_upsampling (all 0 here)
+    makes it 4:4:4. Markers: APP1 (Exif), APP1 (XMP), COM, DQT, SOF0,
+    DHT, SOS, EOI."""
+    from encoder import BitWriter
+    from test_jbr import (
+        AC_COUNTS,
+        AC_VALUES,
+        DC_COUNTS,
+        DC_VALUES,
+        _write_huffman_code,
+        brotli_compress,
+    )
+
+    w = BitWriter()
+    w.write_bool(False)  # is_gray
+    for m in (0xE1, 0xE1, 0xFE, 0xDB, 0xC0, 0xC4, 0xDA, 0xD9):
+        w.write(m - 0xC0, 6)
+    # app markers: type U32(0, 1, 2 + u(1), 4 + u(2)), then length - 1;
+    # Exif (type 2) and XMP (type 3) lengths cover the marker's length
+    # bytes, its identifier and the payload (jbr expected_exif_len)
+    for ty, n in ((2, exif_len + 3 + 6), (3, xmp_len + 3 + 29)):
+        w.write(2, 2)
+        w.write(ty - 2, 1)
+        w.write(n - 1, 16)
+    com = (2 + len(comment)).to_bytes(2, "big") + comment
+    w.write(len(com) - 1, 16)
+    w.write(1, 2)  # num_quant_tables - 1 = 1 (luma + chroma)
+    for idx, last in ((0, False), (1, True)):
+        w.write(0, 1)       # precision 0
+        w.write(idx, 2)     # table index
+        w.write_bool(last)
+    w.write(2, 2)  # comp_type = 2 -> ids R, G, B: an RGB JPEG, as the
+    for q_idx in (0, 1, 1):  # frame is (do_ycbcr false)
+        w.write(q_idx, 2)
+    w.write(1, 2)  # num_huff = 4: U32 selector 1, u(3) = 2
+    w.write(2, 3)
+    _write_huffman_code(w, False, 0, False, DC_COUNTS, DC_VALUES)
+    _write_huffman_code(w, True, 0, False, AC_COUNTS, AC_VALUES)
+    _write_huffman_code(w, False, 1, False, DC_COUNTS, DC_VALUES)
+    _write_huffman_code(w, True, 1, True, AC_COUNTS, AC_VALUES)
+    # one scan of 3 components, ss=0 se=63
+    w.write(2, 2)
+    w.write(0, 6)
+    w.write(63, 6)
+    w.write(0, 4)
+    w.write(0, 4)
+    for comp, tbl in ((0, 0), (1, 1), (2, 1)):
+        w.write(comp, 2)
+        w.write(tbl, 2)  # ac table
+        w.write(tbl, 2)  # dc table
+    w.write(0, 2)  # last_needed_pass
+    w.write(0, 2)  # no reset points
+    w.write(0, 2)  # no extra zero runs
+    w.write(1, 2)  # tail_data_length: 1 + u(8)
+    w.write(len(tail) - 1, 8)
+    w.write_bool(False)  # no padding bits
+    w.zero_pad_to_byte()
+    return w.to_bytes() + brotli_compress(com + tail)
+
+
+# the 4-byte TIFF offset, then a little-endian TIFF header and an empty
+# IFD
+JBRD_EXIF = ((0).to_bytes(4, "big") + b"II*\x00\x08\x00\x00\x00"
+             + b"\x00\x00" + b"\x00\x00\x00\x00")
+JBRD_XMP = b'<x:xmpmeta xmlns:x="adobe:ns:meta/">jbrd fixture</x:xmpmeta>'
+JBRD_GAIN_MAP = bytes(range(256)) * 3
+
+
+def jbrd_container_256() -> bytes:
+    """A container whose jxlc codestream could have come from a 4:4:4
+    colour JPEG: encode_jxl_vardct_mixed at 256^2, every block DCT8, Raw
+    quant matrices over 1/2040 (DequantMatrixSet.parse then reads them as
+    the JPEG's quant tables), integer chroma-from-luma factors, non-XYB,
+    no adaptive LF smoothing, no filters. Beside it: an Exif box, a
+    brob-wrapped XMP box, a jhgm gain map and the jbrd box
+    (`jbrd_box_444`) that rebuilds the JPEG from the frame."""
+    from encoder_vardct import encode_jxl_vardct_mixed
+    from test_jbr import brotli_compress
+
+    rng = np.random.default_rng(70)
+    h = w = 256
+    bh, bw = h // 8, w // 8
+    coeff = np.zeros((3, h, w), dtype=np.int64)
+    live = rng.random((3, h, w)) < 0.15
+    coeff[live] = rng.integers(-9, 10, int(live.sum()))
+    # a JPEG's coefficient block has no DC in the HF planes
+    coeff[:, ::8, ::8] = 0
+    lf_q = rng.integers(-40, 41, (3, bh, bw))
+    qmat = rng.integers(6, 40, (3, 8, 8))
+    cfl = (rng.integers(-12, 13, (h // 64, w // 64)),
+           rng.integers(-12, 13, (h // 64, w // 64)))
+    codestream = encode_jxl_vardct_mixed(
+        h, w, np.zeros((bh, bw), dtype=np.int64),
+        np.ones((bh, bw), dtype=np.int64), coeff, lf_q,
+        raw_dct8=(1.0 / 2040.0, qmat), cfl_grids=cfl)
+
+    def box(ty: bytes, content: bytes) -> bytes:
+        return (8 + len(content)).to_bytes(4, "big") + ty + content
+
+    jbrd = jbrd_box_444(len(JBRD_EXIF) - 4, len(JBRD_XMP),
+                        b"made by tools/make_torch_port_fixtures.py",
+                        b"\x00TAIL")
+    return (b"\x00\x00\x00\x0cJXL \x0d\x0a\x87\x0a"
+            + box(b"ftyp", b"jxl \x00\x00\x00\x00jxl ")
+            + box(b"Exif", JBRD_EXIF)
+            + box(b"brob", b"xml " + brotli_compress(JBRD_XMP))
+            + box(b"jhgm", JBRD_GAIN_MAP)
+            + box(b"jbrd", jbrd)
+            + box(b"jxlc", codestream))
+
+
+def write_jbrd_reference(data: bytes) -> dict:
+    """jbrd_container_256.npz: the JAX package's reconstruct_jpeg()
+    bytes, every aux payload and to_u8(), bytes as uint8 arrays. The
+    render comes from an image of its own: after reconstruct_jpeg, the
+    JAX package's render of this single-section frame raises (its
+    decode_vardct_frame has read the frame's one bitstream; ROADMAP
+    Queue 3)."""
+    from jxl_oxide_tpu import JxlImage
+
+    img = JxlImage.from_bytes(data)
+    as_u8 = lambda b: np.frombuffer(b, dtype=np.uint8)  # noqa: E731
+    return {"jpeg": as_u8(img.reconstruct_jpeg()),
+            "exif": as_u8(img.aux_box(b"Exif")),
+            "raw_exif": as_u8(img.raw_exif_data),
+            "xmp": as_u8(img.raw_xmp),
+            "jhgm": as_u8(img.hdr_gain_map),
+            "u8": JxlImage.from_bytes(data).render_frame(0).to_u8()}
+
+
+# the fixtures chip_smoke.py's phase_frontends runs the CLI on
+FRONTENDS = ("flagship_1024", "modular_1024", "animation_4f_blend",
+             "jbrd_container_256")
+
+
+def apng_delays(png: bytes) -> list:
+    """(delay_num, delay_den) of each fcTL chunk of an APNG."""
+    import struct
+
+    out, pos = [], 8
+    while pos < len(png):
+        n, tag = struct.unpack(">I4s", png[pos:pos + 8])
+        if tag == b"fcTL":
+            out.append(list(struct.unpack(">HH", png[pos + 28:pos + 32])))
+        pos += 12 + n
+    return out
+
+
+def write_frontends() -> None:
+    """frontends.json: the JAX CLI's `info` JSON for each of FRONTENDS
+    and the fcTL delays of its APNG of animation_4f_blend."""
+    import contextlib
+    import io
+    import json
+    import tempfile
+
+    from jxl_oxide_tpu import cli
+
+    info = {}
+    for name in FRONTENDS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(["info", os.path.join(OUT_DIR,
+                                                  f"{name}.jxl")]) == 0
+        info[name] = json.loads(buf.getvalue())
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "anim.png")
+        assert cli.main(["decode", os.path.join(
+            OUT_DIR, "animation_4f_blend.jxl"), "-o", out]) == 0
+        with open(out, "rb") as f:
+            delays = apng_delays(f.read())
+    with open(os.path.join(OUT_DIR, "frontends.json"), "w") as f:
+        json.dump({"info": info,
+                   "apng_delays": {"animation_4f_blend": delays}}, f,
+                  indent=1)
+        f.write("\n")
+    print(f"frontends.json: info of {list(info)}, delays {delays}")
+
+
 def fixtures() -> dict:
     """name -> a function that makes the stream."""
     from encoder import encode_jxl_modular
@@ -664,6 +849,9 @@ def fixtures() -> dict:
         "ec_mix_1024": ec_mix_1024,
         # premultiplied blending over alpha channel 1 (K1 2 a frame)
         "ec_blend_premul_512": ec_blend_premul_512,
+        # a container with metadata boxes and a jbrd box: the front ends'
+        # aux accessors and JPEG reconstruction
+        "jbrd_container_256": jbrd_container_256,
         "alpha_shift_512": lambda: encode_jxl_modular(
             smooth_u8(512, 512, 54) + [smooth_alpha(128, 128, 55)],
             bit_depth=8, extra_alpha=True, alpha_dim_shift=2,
@@ -694,9 +882,12 @@ def main(names) -> None:
     makers = fixtures()
     for name in names or [*makers, "flagship_1024_requests",
                           *(f"{n}_progressive" for n in PROGRESSIVE),
-                          *(f"{n}_roi" for n in ROI)]:
+                          *(f"{n}_roi" for n in ROI), "frontends"]:
         if name == "flagship_1024_requests":
             write_requests()
+            continue
+        if name == "frontends":
+            write_frontends()
             continue
         if name.endswith("_progressive"):
             write_progressive(name[:-len("_progressive")])
@@ -710,7 +901,8 @@ def main(names) -> None:
         if name in STREAM_ONLY:
             print(f"{name}: {len(data)} B stream")
             continue
-        ref = reference(data, extra=name in EXTRA_CHANNELS)
+        ref = (write_jbrd_reference(data) if name == "jbrd_container_256"
+               else reference(data, extra=name in EXTRA_CHANNELS))
         np.savez_compressed(os.path.join(OUT_DIR, f"{name}.npz"), **ref)
         print(f"{name}: {len(data)} B stream, "
               + ", ".join(f"{k} {v.shape}" for k, v in ref.items()))
