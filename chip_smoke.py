@@ -162,10 +162,23 @@ Phases, each fatal (non-zero exit, no "ok" line):
      payloads, and where the system libbrotlidec loads (the run says
      whether it does) the brob box, dump-jbrd's bytes against the JAX
      package's reconstruction and reconstruct_jpeg's host time; `python
-     -m jxl_oxide_tpu_torch info` in a subprocess; --num-devices 2
-     exiting non-zero with the item-13 message; clear_program_caches()
+     -m jxl_oxide_tpu_torch info` in a subprocess; --num-devices one
+     more than the cards raising a clear error; clear_program_caches()
      lowering torch.cuda.memory_reserved(), then the flagship exact with
-     K1 2.
+     K1 2;
+ 13. the sharded decode (`phase_mesh`): each of MESH_DECODES over a mesh
+     of explicit shards on cuda:0, its K1, K9 and K12 launches and calls
+     of the plain epf_step on a CUDA tensor counted (none allowed), equal
+     to the card's single-device decode bit for bit (planes and u8) and
+     within 1 LSB of the reference (alpha exact); K1 launches against
+     passes (the bands of one card go as one stack), K9 one a row band on
+     modular_1024, halo bytes exchanged; MESH_TIMED's launches held and
+     timed (K1's bound on the haloed band), one traced decode each; warm
+     medians of 5 of flagship_1024 at 1, 2 and 4 shards by span (the
+     sharded program and the halo exchange inside); the CLI's decode
+     --num-devices 1. With two cards or more, the flagship over real
+     cards and tools/torch_multihost_check.py over NCCL; else the run
+     says they did not run.
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
 The squeeze's are ops/cuda/squeeze_measure.py (the probe among them);
@@ -2306,9 +2319,16 @@ def phase_frontends(device, probe: dict) -> tuple[dict, dict]:
             if not same:
                 raise AssertionError(f"python -m: {res.stderr[-2000:]}")
 
-            rc, _, err, _ = run_cli(["decode", flag, "--num-devices", "2"])
-            log(f"CLI decode --num-devices 2: rc {rc}, {err.strip()}")
-            if rc == 0 or "item 13" not in err:
+            # a mesh of more cards than there are raises, naming the count
+            # (phase_mesh drives the decodes --num-devices makes)
+            n_over = torch.cuda.device_count() + 1
+            try:
+                run_cli(["decode", flag, "--num-devices", str(n_over)])
+                refused = ""
+            except RuntimeError as e:
+                refused = str(e)
+            log(f"CLI decode --num-devices {n_over}: {refused}")
+            if "CUDA device" not in refused:
                 raise AssertionError("--num-devices did not refuse")
 
         torch.cuda.synchronize()
@@ -2336,6 +2356,171 @@ def phase_frontends(device, probe: dict) -> tuple[dict, dict]:
             sys.modules.pop("PIL", None)
         else:
             sys.modules["PIL"] = pil
+    return k1_paths, k9_paths
+
+
+# the sharded decodes of phase_mesh: (fixture, shard counts on one card).
+# flagship_1024 at 3 shards: shard 2 is pure padding (last_shard 1); the
+# wide fixtures shard by column bands; staged_1030's plan overflows (the
+# staged path, K1 on the whole plane); modular_1024's squeeze runs per row
+# band
+MESH_DECODES = (("flagship_1024", (1, 2, 3, 4)), ("ycbcr420_1024", (2, 4)),
+                ("mixed_512", (2,)), ("epf3_512", (2,)),
+                ("lf_frame_1024", (2,)), ("flagship_alpha_1024", (4,)),
+                ("wide_epf_1024x256", (4,)), ("wide_420_1024x256", (4,)),
+                ("staged_1030", (2,)), ("modular_1024", (4,)))
+# (fixture, shards) whose K1 and K9 launches are held and timed (the
+# kernels' mesh rows): row bands, column bands, the Modular tail's bands
+MESH_TIMED = (("flagship_1024", 4), ("wide_epf_1024x256", 4),
+              ("modular_1024", 4))
+MESH_SPANS = ("Dequant and transform (sharded)", "Halo exchange")
+
+
+def phase_mesh(device, probe: dict) -> tuple[dict, dict]:
+    """The sharded decode on the card (this slice's path): each of
+    MESH_DECODES over a mesh of explicit shards on cuda:0
+    (decode_mesh(n, devices=["cuda:0"] * n)), through
+    JxlImage(mesh=...).render_frame(0) with K1's, K9's and K12's launches
+    counted from 0 just before and read just after, and every call of the
+    plain epf_step on a CUDA tensor counted (none allowed); each decode
+    equal to the card's single-device decode bit for bit (planes and u8)
+    and within 1 LSB of the committed reference (alpha exact); K1 launches
+    against passes x device groups (the bands of one device go as one
+    stack), halo bytes exchanged; for MESH_TIMED each K1 and K9 launch
+    held against the plain version and timed (phases 3 and 3b, K1's bound
+    on the haloed band's shape); the warm median of 5 of flagship_1024 at
+    1, 2 and 4 shards by span; the CLI's decode --num-devices 1. With two
+    or more cards, the flagship over real cards and
+    tools/torch_multihost_check.py over NCCL; else the run says they did
+    not run. Returns K1's and K9's rows of these paths."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops import filters
+    from jxl_oxide_tpu_torch.ops.cuda import epf as k1mod
+    from jxl_oxide_tpu_torch.parallel import decode_mesh, sharded
+
+    k1_paths, k9_paths = {}, {}
+    plain_on_card = []
+
+    def see_plain(planes, *rest):
+        if planes.device.type == "cuda":
+            plain_on_card.append(tuple(planes.shape))
+
+    def planes_u8(img):
+        r = img.render_frame(0)
+        return torch.stack(r.planes).cpu().numpy(), r.to_u8()
+
+    card0 = torch.device("cuda:0")
+    for name, counts in MESH_DECODES:
+        data, ref = read_fixture(name)
+        # K1 launches of the single-device decode: one a filtered frame's
+        # pass (phase 4 holds them to the passes)
+        reset_counts()
+        want, want_u8 = planes_u8(JxlImage.from_bytes(data))
+        passes = read_counts()[0]
+        for n in counts:
+            label = f"{name} on {n} shards"
+            mesh = decode_mesh(n, devices=[card0] * n)
+            reset_counts()
+            sharded.reset_exchanged()
+            plain_on_card.clear()
+            with capturing_kernels() as (eps, sqs), \
+                    watching(filters, "epf_step", see_plain), \
+                    watching(k1mod, "epf_step", see_plain):
+                got, u8 = planes_u8(JxlImage.from_bytes(data, mesh=mesh))
+            counted = read_counts()
+            moved = dict(sharded.exchanged)
+            same = bool(got.shape == want.shape and np.array_equal(got, want))
+            diff = max_lsb(u8, ref)
+            log(f"{label}: {u8.shape}, planes equal to the single-device "
+                f"decode {same}, u8 equal {bool(np.array_equal(u8, want_u8))}"
+                f", max |u8 - reference| {diff}, alpha exact "
+                f"{alpha_exact(u8, ref)}; launches K1 {counted[0]} (passes "
+                f"{passes}; passes x shards {passes * n}, the bands of one "
+                f"card stacked), K9 {counted[1]}, K12 {counted[2]}; K1 planes "
+                f"{sorted({tuple(a[0].shape) for a in eps})}; plain epf_step "
+                f"on the card {len(plain_on_card)}; halo bytes exchanged "
+                f"{moved['bytes']} (to another device {moved['device_bytes']})")
+            if (not same or not np.array_equal(u8, want_u8) or diff > 1
+                    or not alpha_exact(u8, ref)):
+                raise AssertionError(f"{label}: sharded decode differs")
+            if counted[0] != passes or plain_on_card or counted[2]:
+                raise AssertionError(f"{label}: launches {counted}, plain "
+                                     f"EPF on the card {plain_on_card}")
+            if name == MODULAR_PATH and counted[1] != n:
+                raise AssertionError(f"{label}: K9 {counted[1]}, one a band "
+                                     "wanted")
+            if (name, n) in MESH_TIMED:
+                worst = max([check_kernel(*a) for a in eps], default=0.0)
+                log(f"{label}: each K1 launch within {worst:.3g} of plain")
+                if eps:
+                    k1_paths[label] = {"launches": counted[0],
+                                       "halo_bytes": moved["bytes"],
+                                       **pass_rows(label, eps)}
+                if sqs:
+                    k9_paths[label] = {"launches": counted[1],
+                                       **squeeze_row(label, sqs, probe)}
+                profile_run(label, lambda: JxlImage.from_bytes(
+                    data, mesh=mesh).render_frame(0).to_u8(), sum_spans=True)
+
+    data, _ = read_fixture(MAIN_PATH)
+    warm = {}
+    for n in (1, 2, 4):
+        mesh = decode_mesh(n, devices=[card0] * n)
+        u8 = JxlImage.from_bytes(data, mesh=mesh).render_frame(0).to_u8()
+        warm[n] = log_warm_split(
+            f"{MAIN_PATH} on {n} shards of one card", u8,
+            lambda: JxlImage.from_bytes(data, mesh=mesh).render_frame(0)
+            .to_u8(), SPLIT_SPANS, nested=MESH_SPANS)["e2e"]
+    log(f"{MAIN_PATH} warm end to end on one card by shards: "
+        + ", ".join(f"{n}: {ms:.2f} ms" for n, ms in warm.items())
+        + " (measured, no speed-up expected: the shards share one card)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "mesh.png")
+        flag = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata",
+                            f"{MAIN_PATH}.jxl")
+        reset_counts()
+        rc, _, err, _ = run_cli(["decode", flag, "-o", out,
+                                 "--num-devices", "1"])
+        counted = read_counts()
+        frames, _ = read_png(out) if rc == 0 else ([None], None)
+        full = JxlImage.from_bytes(data).render_frame(0).to_u8()
+        same = frames[0] is not None and np.array_equal(frames[0], full)
+        log(f"CLI decode --num-devices 1: rc {rc}, PNG equal to "
+            f"render_frame(0).to_u8() {same}, launches {counted}")
+        if rc != 0 or not same or counted[0] != 2:
+            raise AssertionError(f"CLI --num-devices 1: {err[-2000:]}")
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = min(cards, 4)
+        mesh = decode_mesh(n)
+        reset_counts()
+        got, u8 = planes_u8(JxlImage.from_bytes(data, mesh=mesh))
+        want, _ = planes_u8(JxlImage.from_bytes(data))
+        same = bool(np.array_equal(got, want))
+        log(f"{MAIN_PATH} over {n} cards: equal to one card {same}, "
+            f"launches {read_counts()}")
+        if not same:
+            raise AssertionError("decode over several cards differs")
+        res = subprocess.run(
+            [sys.executable, os.path.join(REPO, "tools",
+                                          "torch_multihost_check.py"),
+             "--hosts", "2", "--chips", "1", "--backend", "nccl",
+             "--device", "cuda", "--timeout", "240"],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        log(f"torch_multihost_check over NCCL: rc {res.returncode}, "
+            f"{res.stdout.strip()[-2000:]}")
+        if res.returncode != 0:
+            raise AssertionError("torch_multihost_check over NCCL failed")
+    else:
+        log(f"{cards} card: the decode over several cards and "
+            "tools/torch_multihost_check.py over NCCL did not run")
     return k1_paths, k9_paths
 
 
@@ -2381,6 +2566,8 @@ def main() -> int:
     report["paths"].update(roi_k1)
     frontend_k1, frontend_k9 = phase_frontends(device, probe)
     report["paths"].update(frontend_k1)
+    mesh_k1, mesh_k9 = phase_mesh(device, probe)
+    report["paths"].update(mesh_k1)
     report["max_abs_err"] = max([report["max_abs_err"], worst]
                                 + [p["max_abs_err"]
                                    for p in report["paths"].values()])
@@ -2399,7 +2586,8 @@ def main() -> int:
         "library_ms": None,
         "pyramid": pyramid,
         "paths": {MODULAR_PATH: squeeze_paths[MODULAR_PATH], **color_k9,
-                  **progressive_k9, **ec_k9, **roi_k9, **frontend_k9},
+                  **progressive_k9, **ec_k9, **roi_k9, **frontend_k9,
+                  **mesh_k9},
     }
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [report, squeeze, noise]}))

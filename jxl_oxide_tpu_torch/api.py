@@ -45,6 +45,10 @@ through a resumable host stage (render/render.py `partial_host_stage`)
 and the same device stage, then composites without touching the slots.
 `Render.stream()` writes interleaved samples into caller buffers, a row
 band at a time (`ImageStream`).
+`JxlImage(mesh=...)` decodes over a device mesh (parallel/): the fused
+VarDCT programs shard by bands of whole groups with halos between
+neighbours, the Modular device tail runs in row bands, and the bands join
+on the mesh's home device, the decode device.
 Streams outside the envelope raise JxlNotSupportedError naming the
 ROADMAP item that will port them; none decodes through a hidden path.
 """
@@ -71,6 +75,7 @@ from .headers.image import (
 )
 from .io.bitstream import Bitstream
 from .io.container import ContainerParser
+from .parallel import use_decode_mesh
 from .render.context import KeyframeRender, RenderContext, planes_bytes
 from .render.frame import Frame
 from .render.render import render_frame
@@ -315,6 +320,17 @@ class ImageStream:
         return n
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one: "cuda" names the current card."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    return ((a.index if a.index is not None else torch.cuda.current_device())
+            == (b.index if b.index is not None
+                else torch.cuda.current_device()))
+
+
 def _not_supported(what: str, item):
     return JxlNotSupportedError(
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
@@ -328,12 +344,26 @@ class JxlImage:
     CUDA device the constructor raises. Pass device="cpu" explicitly to
     run the plain torch versions on the CPU. approx_memory_limit bounds
     the decode's tracked allocations (reference slots, retained keyframe
-    canvases; the reference's AllocTracker) and the keyframe cache."""
+    canvases; the reference's AllocTracker) and the keyframe cache.
+
+    mesh: a decode mesh (parallel.decode_mesh, decode_mesh_multihost).
+    Renders then run under it (parallel.use_decode_mesh): VarDCT frames
+    through the sharded fused programs, the Modular device tail in row
+    bands. The decode device is the mesh's home device (its first shard's
+    on this process); a `device=` that disagrees raises."""
 
     def __init__(self, device=None, num_threads: int | None = None,
                  approx_memory_limit: int | None = None,
-                 force_wide_buffers: bool = False):
+                 force_wide_buffers: bool = False, mesh=None):
+        if mesh is not None:
+            home = mesh.home_device
+            if device is not None and not _same_device(
+                    torch.device(device), home):
+                raise ValueError(f"device {device} is not the mesh's home "
+                                 f"device {home}")
+            device = home
         self.device = resolve_device(device)
+        self._decode_mesh = mesh
         # force_wide_buffers disables the narrow (i16) modular sample
         # lane even when modular_16bit_buffers is set in the header
         # (JxlImageBuilder, lib.rs:199-234; sample.rs:4-36); the output is
@@ -987,6 +1017,7 @@ class JxlImage:
             if h.flags.use_lf_frame:
                 last_lf_read[h.lf_level] = i
         with use_tracker(self._tracker), use_decode_device(self.device), \
+                use_decode_mesh(self._decode_mesh), \
                 use_decode_region(self._coded_region()), \
                 use_force_wide(self._force_wide):
             ctx = RenderContext(self.image_header, self.device)
@@ -1122,13 +1153,14 @@ class JxlImage:
         JAX package renders it, and its cached state then renders the
         complete frame, with no LF (ROADMAP Queue 3). Frames render whole
         and the result is cut to the region of set_image_region, as the
-        JAX package's loading render is. The sharded programs (ROADMAP
-        Queue 1 item 13) stay unported."""
+        JAX package's loading render is. Under a mesh the frames render
+        on it, the loading frame too."""
         if not self._frames:
             raise JxlEofError("no frame data buffered yet")
         from .render.vardct import ProgressiveCache
 
         with use_tracker(self._tracker), use_decode_device(self.device), \
+                use_decode_mesh(self._decode_mesh), \
                 use_force_wide(self._force_wide):
             if self._progressive_ctx is None:
                 self._progressive_ctx = RenderContext(self.image_header,

@@ -12,10 +12,11 @@ dumps header metadata and the frame list; `progressive` and
 
 Every subcommand takes --device: CUDA by default, raising without it;
 `--device cpu` runs the plain torch versions. A timed decode waits for
-the device before it reads the clock. --num-devices (a sharded decode)
-raises JxlNotSupportedError (ROADMAP Queue 1 item 13) and the command
-exits with 1. `generate-fixture` is not ported: it runs the in-repo
-encoders, which import the JAX package.
+the device before it reads the clock. `decode --num-devices N` shards the
+decode over a mesh of N shards (parallel/ decode_mesh): CUDA cards 0..N-1
+(it raises when there are fewer), or N shards on the CPU under `--device
+cpu`. `generate-fixture` is not ported: it runs the in-repo encoders,
+which import the JAX package.
 """
 
 from __future__ import annotations
@@ -60,8 +61,8 @@ def _build_parser():
     d.add_argument("--cms", choices=["pil", "null"], default="pil",
                    help="color management backend for ICC-described images")
     d.add_argument("--num-devices", type=int, default=None,
-                   help="shard the decode over N devices (not ported: "
-                        "raises)")
+                   help="shard the decode over N devices: cuda:0..N-1, or "
+                        "N CPU shards with --device cpu")
     d.add_argument("--force-wide-buffers", action="store_true",
                    help="disable the narrow (i16) modular sample lane")
     d.add_argument("--num-threads", type=int, default=None,
@@ -108,15 +109,21 @@ def _parse_crop(spec: str):
 def _decode_once(data: bytes, args):
     """One decode of every keyframe, finished on the device: the image and
     its renders."""
-    from .api import JxlImage, _not_supported
+    from .api import JxlImage
 
+    mesh = None
     if args.num_devices:
-        raise _not_supported("a decode sharded over devices (--num-devices)",
-                             13)
-    img = JxlImage(device=args.device,
+        from .parallel import decode_mesh
+
+        cpu = args.device is not None and torch.device(args.device).type == (
+            "cpu")
+        mesh = decode_mesh(args.num_devices,
+                           devices=["cpu"] * args.num_devices if cpu
+                           else None)
+    img = JxlImage(device=None if mesh is not None else args.device,
                    approx_memory_limit=args.approx_memory_limit,
                    num_threads=args.num_threads,
-                   force_wide_buffers=args.force_wide_buffers)
+                   force_wide_buffers=args.force_wide_buffers, mesh=mesh)
     img.feed_bytes(data)
     img.finish()
     if args.cms == "null":

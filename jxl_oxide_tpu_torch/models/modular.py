@@ -40,7 +40,36 @@ __all__ = ["ModularHeader", "ModularImage", "ModularSubimage", "ChannelInfo",
            "inverse_transforms_device"]
 
 
-def inverse_transforms_device(transforms, planes: list, bit_depth: int) -> list:
+def _row_bands(t: torch.Tensor, mesh) -> list:
+    """A 2-D plane in row bands over the mesh shards of this process, as
+    GSPMD splits a row-sharded array: ceil(h / n) rows each, band k on
+    shard k's device (bands past the plane's end are empty and dropped)."""
+    devices = [mesh.devices[s] for s in mesh.local]
+    chunk = -(-t.shape[0] // len(devices))
+    return [t[k * chunk:(k + 1) * chunk].to(d)
+            for k, d in enumerate(devices) if k * chunk < t.shape[0]]
+
+
+def _whole(x, device) -> torch.Tensor:
+    """A plane (a tensor or its row bands) whole on `device`."""
+    if isinstance(x, list):
+        return torch.cat([b.to(device) for b in x])
+    return x
+
+
+def _banded(x, mesh) -> list | None:
+    """Row bands of plane `x` under `mesh` (its own if it has them), or
+    None for a plane with fewer rows than the mesh has local shards (it
+    stays whole, jxl_oxide_tpu/models/modular.py:331-336)."""
+    if isinstance(x, list):
+        return x
+    if x.dim() == 2 and x.shape[0] >= len(mesh.local):
+        return _row_bands(x, mesh)
+    return None
+
+
+def inverse_transforms_device(transforms, planes: list, bit_depth: int,
+                              mesh=None) -> list:
     """The inverse transforms on int32 tensors (jxl_oxide_tpu/models/
     modular.py _finish_device's chain): `planes` are the transformed
     channel slots in slot order, as tensors on one device; returns the
@@ -49,17 +78,33 @@ def inverse_transforms_device(transforms, planes: list, bit_depth: int) -> list:
     the re-expansion of its members. RCT and palette are torch ops
     (ops/modular_tail.py); each squeeze goes through the kernel's wrapper
     ops/cuda/squeeze.py inv_squeeze_cuda, looked up on its module at each
-    call so that a measurement can wrap it in one place."""
+    call so that a measurement can wrap it in one place.
+
+    Under a decode `mesh` the steps whose rows are independent run per row
+    band, each band on its shard's device: RCT, and the horizontal
+    squeeze, which launches the kernel once per band. The steps that
+    couple rows (the vertical squeeze, palette) gather their operands on
+    the planes' device, as GSPMD's resharding does for the JAX package's
+    row-sharded slots (jxl_oxide_tpu/models/modular.py:317-345). The
+    result is the same bit for bit, whole on the planes' device."""
     from ..ops import modular_tail as mt
     from ..ops.cuda import squeeze as kernel
 
+    home = planes[0].device if planes else None
     dev = list(planes)
     for tr in reversed(transforms):
         if isinstance(tr, Rct):
             b = tr.begin_c
-            dev[b], dev[b + 1], dev[b + 2] = mt.inv_rct(
-                dev[b], dev[b + 1], dev[b + 2], tr.rct_type
-            )
+            ops = dev[b:b + 3]
+            bands = ([_banded(x, mesh) for x in ops] if mesh is not None
+                     else [None])
+            if all(x is not None for x in bands):
+                outs = [mt.inv_rct(x, y, z, tr.rct_type)
+                        for x, y, z in zip(*bands)]
+                dev[b], dev[b + 1], dev[b + 2] = (list(o) for o in zip(*outs))
+            else:
+                dev[b], dev[b + 1], dev[b + 2] = mt.inv_rct(
+                    *[_whole(x, home) for x in ops], tr.rct_type)
         elif isinstance(tr, Squeeze):
             for sp in reversed(tr.sp):
                 begin, n = sp.begin_c, sp.num_c
@@ -71,19 +116,27 @@ def inverse_transforms_device(transforms, planes: list, bit_depth: int) -> list:
                     residuals = dev[len(dev) - n :]
                     del dev[len(dev) - n :]
                 for i in range(n):
+                    avg, res = dev[begin + i], residuals[i]
+                    if mesh is not None and sp.horizontal:
+                        bands = [_banded(avg, mesh), _banded(res, mesh)]
+                        if all(x is not None for x in bands):
+                            dev[begin + i] = [
+                                kernel.inv_squeeze_cuda(a, r_, True)
+                                for a, r_ in zip(*bands)]
+                            continue
                     dev[begin + i] = kernel.inv_squeeze_cuda(
-                        dev[begin + i], residuals[i], sp.horizontal
+                        _whole(avg, home), _whole(res, home), sp.horizontal
                     )
         else:  # Palette
-            palette = dev.pop(0)
+            palette = _whole(dev.pop(0), home)
             begin = tr.begin_c
             outs = mt.palette_lookup(
-                palette, dev[begin],
+                palette, _whole(dev[begin], home),
                 torch.from_numpy(DELTA_PALETTE).to(palette.device),
                 tr.num_c, tr.nb_colours, tr.nb_deltas, bit_depth,
             )
             dev[begin : begin + 1] = list(outs)
-    return dev
+    return [_whole(x, home) for x in dev]
 
 
 @dataclass
@@ -379,8 +432,10 @@ class ModularImage:
 
     def _finish_device(self) -> list[torch.Tensor]:
         """Device twin of the host tail: the slots go up to the decode's
-        device in one copy, then `inverse_transforms_device`. Returns the
-        original channels as int32 tensors there."""
+        device in one copy, then `inverse_transforms_device` (in row bands
+        over the decode mesh, if one is set). Returns the original
+        channels as int32 tensors there."""
+        from ..parallel import get_decode_mesh
         from ..utils.options import get_decode_device
 
         arrs = [s.arr for s in self.slots]
@@ -396,7 +451,7 @@ class ModularImage:
             for part, a in zip(torch.split(buf, sizes), arrs)
         ]
         out = inverse_transforms_device(self.header.transforms, planes,
-                                        self.bit_depth)
+                                        self.bit_depth, get_decode_mesh())
         self.finished = True
         return out
 

@@ -30,7 +30,8 @@ import torch
 from ..filters import EPF_NEG_K, epf_step
 from . import build
 
-__all__ = ["bind", "epf_step_cuda", "kernel_params", "launch"]
+__all__ = ["BAND_HALO", "bind", "epf_step_bands", "epf_step_cuda",
+           "kernel_params", "launch"]
 
 
 _FLOATS = [ctypes.c_float] * 6
@@ -84,19 +85,27 @@ def launch(fn, planes: torch.Tensor, sigma: torch.Tensor, out: torch.Tensor,
            step: int, channel_scale, step_multiplier: float,
            border_sad_mul: float) -> None:
     """One launch of `fn` (from `bind`) on contiguous float32 CUDA tensors,
-    planes [3, H, W] or [N, 3, H, W], into `out`, on the current stream.
-    No checks and no launch count: the caller has made both."""
+    planes [3, H, W] or [N, 3, H, W], into `out`, on the current stream of
+    their device, which is made the current device for the launch (a mesh
+    puts bands on several cards). No checks and no launch count: the
+    caller has made both."""
     h, w = planes.shape[-2:]
     images = planes.shape[0] if planes.dim() == 4 else 1
-    err = fn(
-        planes.data_ptr(), sigma.data_ptr(), out.data_ptr(), images, h, w,
-        step,
-        *kernel_params(tuple(channel_scale), float(step_multiplier),
-                       float(border_sad_mul)),
-        # the current stream's handle; torch.cuda.current_stream() builds a
-        # Stream object and costs more than the launch itself
-        torch._C._cuda_getCurrentRawStream(planes.device.index),
-    )
+    # torch.cuda.device's own calls: the context manager's argument parsing
+    # costs more host time than the launch
+    prev = torch.cuda._exchange_device(planes.device.index)
+    try:
+        err = fn(
+            planes.data_ptr(), sigma.data_ptr(), out.data_ptr(), images, h,
+            w, step,
+            *kernel_params(tuple(channel_scale), float(step_multiplier),
+                           float(border_sad_mul)),
+            # the current stream's handle; torch.cuda.current_stream()
+            # builds a Stream object and costs more than the launch itself
+            torch._C._cuda_getCurrentRawStream(planes.device.index),
+        )
+    finally:
+        torch.cuda._maybe_exchange_device(prev)
     if err != 0:
         raise RuntimeError(f"EPF kernel launch failed: error {err}")
 
@@ -152,3 +161,44 @@ _count_lock = threading.Lock()
 # measurement rebinds this module's `epf_step_cuda` to a wrapper of its own
 # (epf_measure.capture_decode)
 _counted = epf_step_cuda
+
+
+# halo of a shard band for one K1 pass: one 8-pixel block row (column), so
+# the kernel's y % 8 / x % 8 border pattern and its TMA row alignment hold
+# on the haloed band
+BAND_HALO = 8
+
+
+def epf_step_bands(bands: list, sigmas: list, step: int, channel_scale,
+                   step_multiplier: float, border_sad_mul: float, mesh,
+                   vloc: int, last_shard: int, dim: int) -> list:
+    """One EPF pass over the bands of a plane sharded across `mesh` (ops/
+    vardct_pipeline.py build_fused_pipeline_sharded): `bands` are this
+    process's shards in mesh order, [3, h, w] each, split along `dim` (-2
+    rows, -1 columns); `sigmas` their sigma maps with BAND_HALO real
+    samples on each side along `dim` already (they do not change between
+    passes).
+
+    Each band takes a BAND_HALO halo from its neighbours
+    (parallel/sharded.py, mirrored at the valid edges as the whole plane
+    is), the bands on one device go through `epf_step_cuda` as one stack
+    [n, 3, h + 16, w] (one launch), and each keeps its middle: an output
+    sample reads +-3 samples, all real there, so the kept samples are
+    epf_step(prepad_rows=3) (prepad_cols) of the band bit for bit on the
+    CPU, and the samples the kernel mirrored at the stack's own edges are
+    thrown away."""
+    from ...parallel.sharded import _halo_pad
+
+    padded = _halo_pad(bands, BAND_HALO, mesh, vloc, last_shard, dim)
+    groups: dict = {}
+    for k, p in enumerate(padded):
+        groups.setdefault(p.device, []).append(k)
+    out = [None] * len(bands)
+    for ks in groups.values():
+        x = torch.stack([padded[k] for k in ks])
+        s = torch.stack([sigmas[k] for k in ks])
+        y = epf_step_cuda(x, s, step, channel_scale, step_multiplier,
+                          border_sad_mul)
+        for j, k in enumerate(ks):
+            out[k] = y[j].narrow(dim, BAND_HALO, bands[k].shape[dim])
+    return out

@@ -52,17 +52,22 @@ def _fn():
 def launch(fn, avg: torch.Tensor, residu: torch.Tensor, out: torch.Tensor,
            horizontal: bool) -> None:
     """One launch of `fn` (from `bind`) on contiguous int32 CUDA tensors,
-    into `out`, on the current stream. No checks and no launch count: the
-    caller has made both."""
+    into `out`, on the current stream of their device, which is made the
+    current device for the launch (a mesh puts row bands on several
+    cards). No checks and no launch count: the caller has made both."""
     if horizontal:
         lines, na = avg.shape
         nr = residu.shape[1]
     else:
         na, lines = avg.shape
         nr = residu.shape[0]
-    err = fn(avg.data_ptr(), residu.data_ptr(), out.data_ptr(), lines, na,
-             nr, int(horizontal),
-             torch._C._cuda_getCurrentRawStream(avg.device.index))
+    prev = torch.cuda._exchange_device(avg.device.index)
+    try:
+        err = fn(avg.data_ptr(), residu.data_ptr(), out.data_ptr(), lines,
+                 na, nr, int(horizontal),
+                 torch._C._cuda_getCurrentRawStream(avg.device.index))
+    finally:
+        torch.cuda._maybe_exchange_device(prev)
     if err != 0:
         raise RuntimeError(f"squeeze kernel launch failed: error {err}")
 

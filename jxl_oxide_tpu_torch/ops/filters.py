@@ -51,16 +51,25 @@ def gabor(plane: torch.Tensor, weights: tuple, prepad_rows: int = 0,
 
     weights = (w0, w1): side and diagonal weights; kernel is
     [[w1 w0 w1], [w0 1 w0], [w1 w0 w1]] / (1 + 4*w0 + 4*w1),
-    clamp-to-edge boundary. The prepad (shard halo) forms belong to the
-    multi-device slice (ROADMAP Queue 1 item 13) and raise for now.
+    clamp-to-edge boundary.
+
+    prepad_rows=1 (or prepad_cols=1): `plane` already carries one extra
+    row (column) on each side, real halo data from a neighbouring shard
+    (parallel/sharded.py); only the other dimension is clamped here, and
+    the output drops the halo (jxl_oxide_tpu/ops/filters.py:38-45).
     """
-    if prepad_rows or prepad_cols:
-        raise NotImplementedError(
-            "gabor halo forms are not ported yet (ROADMAP Queue 1 item 13)"
-        )
     w0, w1 = weights
     h, w = plane.shape[-2:]
-    p = F.pad(plane.reshape(-1, 1, h, w), (1, 1, 1, 1), mode="replicate")
+    if prepad_rows:
+        assert prepad_rows == 1 and not prepad_cols
+        pads, h = (1, 1, 0, 0), h - 2
+    elif prepad_cols:
+        assert prepad_cols == 1
+        pads, w = (0, 0, 1, 1), w - 2
+    else:
+        pads = (1, 1, 1, 1)
+    p = F.pad(plane.reshape(-1, 1, *plane.shape[-2:]), pads,
+              mode="replicate")
     p = p.reshape(*plane.shape[:-2], h + 2, w + 2)
     c = p[..., 1:-1, 1:-1]
     n = p[..., :-2, 1:-1]
@@ -83,10 +92,11 @@ def mirror_index(n: int, pad: int, device) -> torch.Tensor:
     return torch.where(i < n, i, 2 * n - 1 - i)
 
 
-def _symmetric_pad(planes: torch.Tensor, pad: int) -> torch.Tensor:
+def _symmetric_pad(planes: torch.Tensor, pad_rows: int,
+                   pad_cols: int) -> torch.Tensor:
     h, w = planes.shape[-2:]
-    rows = mirror_index(h, pad, planes.device)
-    cols = mirror_index(w, pad, planes.device)
+    rows = mirror_index(h, pad_rows, planes.device)
+    cols = mirror_index(w, pad_cols, planes.device)
     return planes[..., rows, :][..., cols]
 
 
@@ -101,16 +111,26 @@ def epf_step(planes: torch.Tensor, sigma: torch.Tensor, step: int,
     per-8x8-block grid. Returns the filtered planes in the planes' shape.
     A stack is one set of ops over the leading axis, whatever N is, and
     each image's result is that of its own pass bit for bit (every op is
-    elementwise or a gather within the image). The prepad (shard halo)
-    forms belong to the multi-device slice (ROADMAP Queue 1 item 13) and
-    raise for now.
+    elementwise or a gather within the image).
+
+    prepad_rows=PAD (or prepad_cols=PAD): `planes` carries PAD real halo
+    rows (columns) from neighbouring shards on each side; only the other
+    dimension is mirrored here, sigma stays [H, W], and the output is
+    [..., 3, H, W] (jxl_oxide_tpu/ops/filters.py:95-108). The step
+    multiplier pattern is in the band's own coordinates, which is right
+    where band bases are multiples of 8 (whole groups).
     """
-    if prepad_rows or prepad_cols:
-        raise NotImplementedError(
-            "EPF halo forms are not ported yet (ROADMAP Queue 1 item 13)"
-        )
+    if prepad_rows:
+        assert prepad_rows == PAD and not prepad_cols
+        padded = _symmetric_pad(planes, 0, PAD)
+        planes = planes[..., PAD:-PAD, :]
+    elif prepad_cols:
+        assert prepad_cols == PAD
+        padded = _symmetric_pad(planes, PAD, 0)
+        planes = planes[..., PAD:-PAD]
+    else:
+        padded = _symmetric_pad(planes, PAD, PAD)
     h, w = planes.shape[-2:]
-    padded = _symmetric_pad(planes, PAD)
 
     def shift(pc, dx, dy):
         return pc[..., PAD + dy : PAD + dy + h, PAD + dx : PAD + dx + w]

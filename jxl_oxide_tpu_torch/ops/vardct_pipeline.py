@@ -9,15 +9,18 @@ same constructor arguments and the same operation order:
   - build_fused_pipeline_subsampled (and its per-channel part,
     build_fused_pipeline_1ch): chroma-subsampled YCbCr frames, with the
     triangle chroma upsample before the filters;
+  - build_fused_pipeline_sharded and
+    build_fused_pipeline_subsampled_sharded: the same programs over a
+    decode mesh (parallel/), each shard a band of whole groups on its own
+    device, halos exchanged between neighbours;
   - dequant_plane, cfl_plane, cfl_lf, gather_blocks, scatter_blocks and
     transform_buckets: the staged path that render/vardct.py takes when
     a dense plan overflows.
 Each fused stage is a whole-plane tensor op; per-varblock raggedness is
 resolved by the host-built dense plan (render/vardct.py dense_plan), so
 every shape is fixed per program key. Every EPF pass goes through the
-hand-written CUDA kernel on a CUDA device (ops/filters.py apply_epf).
-
-The sharded builders are not ported yet (ROADMAP Queue 1 item 13).
+hand-written CUDA kernel on a CUDA device (ops/filters.py apply_epf; on a
+mesh, ops/cuda/epf.py epf_step_bands on each band).
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ __all__ = [
     "build_fused_pipeline",
     "build_fused_pipeline_subsampled",
     "build_fused_pipeline_1ch",
+    "build_fused_pipeline_sharded",
+    "build_fused_pipeline_subsampled_sharded",
     "dequant_plane",
     "cfl_plane",
     "cfl_lf",
@@ -142,11 +147,26 @@ def _sep_apply_4d(x4, Bv, Bh_, C, ny, v0, nx, h0):
     return h.transpose(1, 2)
 
 
-def _sep_apply_dense(x, Bv, Bh_, C, ny, v0, nx, h0):
-    """_sep_apply_4d on a [C, Hr, Wr] input."""
-    return _sep_apply_4d(
-        x.reshape(C, ny, v0, nx * h0), Bv, Bh_, C, ny, v0, nx, h0
-    )
+def _tile_dct_in_order(x, av, ah, C, ny, th, nx, tw):
+    """The forward DCT of every th x tw tile of x [C, ny*th, nx*tw] (the LF
+    tiles of the multi-block types): per output, the products summed in
+    index order as separate elementwise ops, vertically then horizontally.
+    Unlike a matmul, whose library may sum in another order for another
+    tensor size (on the card a K = 4 product of a whole plane and of a
+    band of it differ in the last bit), every output is then the same sum
+    whatever the plane's size, so a shard band's transform equals the
+    whole plane's bit for bit. The tiles are LF samples, 1/64 of the
+    pixels, and th, tw <= 32."""
+    t = x.reshape(C, ny, th, nx, tw)
+    v = None
+    for k in range(th):
+        term = av[:, k].reshape(1, 1, th, 1, 1) * t[:, :, k:k + 1]
+        v = term if v is None else v + term
+    h = None
+    for j in range(tw):
+        term = ah[:, j].reshape(1, 1, 1, 1, tw) * v[..., j:j + 1]
+        h = term if h is None else h + term
+    return h.reshape(C, ny * th, nx * tw)
 
 
 def _entry_constants(entries, matrices, lf_shape, device):
@@ -285,8 +305,9 @@ def dense_transform_channels(biased, lf_planes, kx_map, kb_map, code_grid,
                 # multi-block DCTnxm: embed fwd-DCT of the LF tile into
                 # the low corner (transform_common.rs:11-77), all dense
                 lf5 = lf_planes[:, :, oy:oy + ny * th, ox:ox + nx * tw]
-                lf_c = _sep_apply_dense(lf5.reshape(BC, ny * th, nx * tw),
-                                        k["av"], k["ah"], BC, ny, th, nx, tw)
+                lf_c = _tile_dct_in_order(
+                    lf5.reshape(BC, ny * th, nx * tw), k["av"], k["ah"], BC,
+                    ny, th, nx, tw)
                 lf_c4 = lf_c.reshape(BC, ny, th, nx * tw) / k["sf4"][None,
                                                                     None]
                 lf4 = torch.nn.functional.pad(
@@ -564,6 +585,297 @@ def build_fused_pipeline_subsampled(
                             gabor_weights, epf_params, embed, crop)
 
     return _one_image(pipeline)
+
+
+# -- the sharded programs ---------------------------------------------------
+
+
+def _smooth_local(lf_bands, lf_scale, mesh, vloc_lf: int, last_shard: int,
+                  lh_valid: int, lw_valid: int, shard_dim: str) -> list:
+    """Adaptive LF smoothing on the LF bands [3, lh_loc, lw] (rows) or
+    [3, lh, lw_loc] (cols) of this process's shards: adaptive_lf_smoothing's
+    arithmetic in the same operand order, with the 1-px neighbourhood
+    across a shard boundary from the neighbour and the interior mask in
+    GLOBAL coordinates (borders keep the unsmoothed value,
+    generic/mod.rs:10-105; jxl_oxide_tpu/ops/vardct_pipeline.py:444-492)."""
+    from ..parallel.sharded import halo_pad_cols, halo_pad_rows
+
+    by_rows = shard_dim == "rows"
+    halo_pad = halo_pad_rows if by_rows else halo_pad_cols
+    padded = halo_pad(lf_bands, 1, mesh, vloc_lf, last_shard)
+    scale_self = 0.052262735
+    scale_side = 0.2034514
+    scale_diag = 0.03348292
+    out = []
+    for s, lf, pb in zip(mesh.local, lf_bands, padded):
+        p = torch.nn.functional.pad(
+            pb[None], (1, 1, 0, 0) if by_rows else (0, 0, 1, 1),
+            mode="replicate")[0]
+        c = p[:, 1:-1, 1:-1]
+        side = (p[:, 1:-1, :-2] + p[:, 1:-1, 2:] + p[:, :-2, 1:-1]
+                + p[:, 2:, 1:-1])
+        diag = (p[:, :-2, :-2] + p[:, :-2, 2:] + p[:, 2:, :-2]
+                + p[:, 2:, 2:])
+        was = c * scale_self + side * scale_side + diag * scale_diag
+        gap = torch.full(lf.shape[1:], 0.5, dtype=torch.float32,
+                         device=lf.device)
+        for ch in range(3):
+            gap = torch.maximum(gap, torch.abs(was[ch] - lf[ch])
+                                / float(lf_scale[ch]))
+        gap_scale = torch.clamp_min(3.0 - 4.0 * gap, 0.0)
+        h, w = lf.shape[1:]
+        yy = torch.arange(h, device=lf.device)[:, None]
+        xx = torch.arange(w, device=lf.device)[None, :]
+        if by_rows:
+            yy = yy + s * h
+        else:
+            xx = xx + s * w
+        interior = ((yy > 0) & (yy < lh_valid - 1) & (xx > 0)
+                    & (xx < lw_valid - 1))
+        out.append(torch.stack([
+            torch.where(interior, (was[ch] - lf[ch]) * gap_scale + lf[ch],
+                        lf[ch])
+            for ch in range(3)
+        ]))
+    return out
+
+
+def _sharded_filter_tail(bands, sigma_blocks, mesh, gabor_weights,
+                         epf_params, vloc: int, last_shard: int,
+                         by_rows: bool) -> list:
+    """Gaborish after a 1-px halo, then each EPF pass after a fresh halo
+    (the next pass's neighbourhood across a boundary is the previous
+    pass's output, as in the sequential whole-plane passes), on the bands
+    [3, h, w] of this process's shards (jxl_oxide_tpu/ops/
+    vardct_pipeline.py:603-638). Each EPF pass is K1 on the bands with an
+    8-px halo (ops/cuda/epf.py epf_step_bands)."""
+    from ..parallel.sharded import halo_pad_cols, halo_pad_rows
+    from .cuda import epf as kernel
+
+    halo_pad = halo_pad_rows if by_rows else halo_pad_cols
+    dim = -2 if by_rows else -1
+    if gabor_weights is not None:
+        padded = halo_pad(bands, 1, mesh, vloc, last_shard)
+        bands = [torch.stack([
+            gabor(p[c], tuple(gabor_weights[c]),
+                  prepad_rows=1 if by_rows else 0,
+                  prepad_cols=0 if by_rows else 1)
+            for c in range(3)]) for p in padded]
+    if epf_params is None:
+        return bands
+    h, w = bands[0].shape[-2:]
+    sigmas = halo_pad([_sigma_map(sb, h, w)[None] for sb in sigma_blocks],
+                      kernel.BAND_HALO, mesh, vloc, last_shard)
+    sigmas = [s_[0] for s_ in sigmas]
+    cs = tuple(epf_params.channel_scale)
+    bsm = float(epf_params.border_sad_mul)
+    steps = []
+    if epf_params.iters == 3:
+        steps.append((0, float(epf_params.pass0_sigma_scale)))
+    if epf_params.iters >= 1:
+        steps.append((1, 1.0))
+    if epf_params.iters >= 2:
+        steps.append((2, float(epf_params.pass2_sigma_scale)))
+    for step, mult in steps:
+        bands = kernel.epf_step_bands(bands, sigmas, step, cs, mult, bsm,
+                                      mesh, vloc, last_shard, dim)
+    return bands
+
+
+def _join(mesh, bands, by_rows: bool, crop):
+    """The bands joined on this process's home device (every shard's,
+    across processes too), then cut to the frame."""
+    from ..parallel.sharded import join_bands
+
+    out = join_bands(mesh, bands, -2 if by_rows else -1)
+    if crop is not None:
+        out = out[:, : crop[0], : crop[1]]
+    return out
+
+
+def _device_groups(mesh) -> dict:
+    """This process's shards grouped by device, in mesh order: device ->
+    positions in mesh.local. The transforms of one group run as one
+    stack, which also gives their matmuls the whole plane's sizes where
+    the bands tile it on one device: cuBLAS may sum a product of another
+    size in another order."""
+    groups: dict = {}
+    for k, s in enumerate(mesh.local):
+        groups.setdefault(mesh.devices[s], []).append(k)
+    return groups
+
+
+def build_fused_pipeline_sharded(
+    mesh, local_plane_shape, local_lf_shape, entries,
+    matrices, quant_bias, quant_bias_numerator,
+    global_scale, qm_scale, lf_scale,
+    skip_smoothing: bool,
+    vloc: int, vloc_lf: int, lf_valid: tuple,
+    last_shard: int,
+    cfl_lf_k=(0.0, 1.0), cfl_colour_factor=84,
+    cfl_base=(0.0, 1.0),
+    gabor_weights=None, epf_params=None,
+    sparse_coeff_n: int | None = None,
+    crop=None, cfl_const: bool = False,
+    shard_dim: str = "rows",
+):
+    """The fused 4:4:4 program over a decode mesh (jxl_oxide_tpu/ops/
+    vardct_pipeline.py:495-675, there under shard_map): bands of whole
+    groups, rows for tall frames and columns for wide ones, one per shard,
+    each on its shard's device. Shapes are LOCAL: the sharded dimension
+    is padded to n_shards * loc with loc a multiple of the group size, so
+    no varblock crosses a band boundary and band bases keep every
+    transform's residues. `last_shard` holds the valid image edge at
+    local offset `vloc` (`vloc_lf` on the LF grid); later shards carry
+    only padding.
+
+    fn(shards): `shards` lists, for each of this process's shards in mesh
+    order, its 8 inputs on its device (coeff [3, Hl, Wl] int or the sparse
+    pair (idx [S] i32, val [S]) with ascending out-of-bounds pads, lf_quant
+    [3, LHl, LWl], lf_scale_arr [3], x_grid/b_grid, sigma_blocks,
+    code_grid and mul_grid of the band). Returns [3, crop_h, crop_w]
+    float32 on the mesh's home device: the bands joined there, then cut."""
+    Hl, Wl = local_plane_shape
+    lh_valid, lw_valid = lf_valid
+    by_rows = shard_dim == "rows"
+    devices = _device_groups(mesh)
+    consts = {d: _entry_constants(entries, matrices, local_lf_shape, d)
+              for d in devices}
+    qb = {d: torch.tensor(np.asarray(quant_bias, dtype=np.float32),
+                          device=d)[:, None, None] for d in devices}
+    qbn = _f32(quant_bias_numerator)
+    kx0, kb0 = (_f32(v) for v in cfl_lf_k)
+    cf = _f32(cfl_colour_factor)
+
+    def band_lf(coeff, lf_quant, lf_scale_arr):
+        if sparse_coeff_n is not None:
+            coeff = _sparse_to_dense(
+                tuple(a[None] for a in coeff), (3, Hl, Wl))[0]
+        lf = lf_quant.to(torch.float32) * lf_scale_arr[:, None, None]
+        lf = torch.stack([lf[0] + kx0 * lf[1], lf[1], lf[2] + kb0 * lf[1]])
+        return coeff, lf
+
+    def group_transform(coeff, lf, x_grid, b_grid, code_grid, mul_grid):
+        """The dense transforms of the stacked bands of one device."""
+        if cfl_const:
+            kx_map = float(cfl_base[0])
+            kb_map = float(cfl_base[1])
+        else:
+            kx_map = _f32(cfl_base[0]) + x_grid.to(torch.float32) / cf
+            kb_map = _f32(cfl_base[1]) + b_grid.to(torch.float32) / cf
+            kx_map = kx_map.repeat_interleave(64, -2).repeat_interleave(
+                64, -1)[:, :Hl, :Wl]
+            kb_map = kb_map.repeat_interleave(64, -2).repeat_interleave(
+                64, -1)[:, :Hl, :Wl]
+        dev = coeff.device
+        return dense_transform_channels(
+            _bias(coeff, qb[dev], qbn), lf, kx_map, kb_map, code_grid,
+            mul_grid.to(torch.float32), entries, matrices, global_scale,
+            qm_scale, consts=consts[dev])
+
+    def pipeline(shards):
+        coeffs, lfs = zip(*[band_lf(*x[:3]) for x in shards])
+        lfs = list(lfs)
+        if not skip_smoothing:
+            lfs = _smooth_local(lfs, lf_scale, mesh, vloc_lf, last_shard,
+                                lh_valid, lw_valid, shard_dim)
+        bands = [None] * len(shards)
+        for ks in devices.values():
+            out = group_transform(
+                torch.stack([coeffs[k] for k in ks]),
+                torch.stack([lfs[k] for k in ks]),
+                *[torch.stack([shards[k][i] for k in ks])
+                  for i in (3, 4, 6, 7)])
+            for k, band in zip(ks, out.unbind(0)):
+                bands[k] = band
+        bands = _sharded_filter_tail(bands, [x[5] for x in shards], mesh,
+                                     gabor_weights, epf_params, vloc,
+                                     last_shard, by_rows)
+        return _join(mesh, bands, by_rows, crop)
+
+    return pipeline
+
+
+def build_fused_pipeline_subsampled_sharded(
+    mesh, local_plane_shapes, local_lf_shapes, local_full_shape,
+    entries3, matrices3,
+    quant_bias, quant_bias_numerator,
+    global_scale, qm_scale, lf_scale,
+    vloc: int, last_shard: int,
+    gabor_weights=None, epf_params=None,
+    crop=None, shard_dim: str = "rows",
+):
+    """build_fused_pipeline_subsampled over a decode mesh (jxl_oxide_tpu/
+    ops/vardct_pipeline.py:797-939): each channel's stored plane shards at
+    its own band size (loc >> shift; group bands stay whole in every
+    channel's coordinates). The triangle chroma upsample runs HORIZONTAL
+    then VERTICAL in both layouts, the single-device program's order (2-D
+    triangle roundings do not commute across axis order); along the
+    sharded axis it takes ONE stored-resolution halo sample from the
+    neighbour (clamp-to-edge is the 1-wide mirror the halo gives at the
+    valid edges), along the other it is local. The full-resolution filter
+    tail is the 4:4:4 program's.
+
+    local_* shapes are per shard; vloc/last_shard give the valid image
+    edge at full resolution (each channel's is vloc >> shift). fn(shards):
+    for each of this process's shards, its 13 inputs on its device (per
+    channel dense coeff, lf_quant, code_grid, mul_grid; then the
+    full-resolution sigma block grid). Returns [3, crop_h, crop_w] on the
+    home device (still YCbCr)."""
+    from ..parallel.sharded import halo_pad_cols, halo_pad_rows
+
+    Hl, Wl = local_full_shape
+    by_rows = shard_dim == "rows"
+    halo_pad = halo_pad_rows if by_rows else halo_pad_cols
+    devices = _device_groups(mesh)
+    chans = [
+        {d: build_fused_pipeline_1ch(
+            local_plane_shapes[c], local_lf_shapes[c], entries3[c],
+            matrices3[c], quant_bias[c], quant_bias_numerator,
+            global_scale, qm_scale[c], lf_scale[c], device=d).stacked
+         for d in devices}
+        for c in range(3)
+    ]
+
+    def up2_sharded(bands, vloc_c):
+        """Triangle 2x upsample along the SHARDED axis: a 1-sample halo,
+        then the upsampled halo sliced off."""
+        padded = halo_pad([b[None] for b in bands], 1, mesh, vloc_c,
+                          last_shard)
+        if by_rows:
+            return [_triangle_up2(p[0], -2)[2:-2, :] for p in padded]
+        return [_triangle_up2(p[0], -1)[:, 2:-2] for p in padded]
+
+    def pipeline(shards):
+        planes = []
+        for c in range(3):
+            outc = [None] * len(shards)
+            for d, ks in devices.items():
+                coeff, lf_quant, code_grid, mul_grid = (
+                    torch.stack([shards[k][i] for k in ks])
+                    for i in range(4 * c, 4 * c + 4))
+                out = chans[c][d](coeff, lf_quant, code_grid, mul_grid)
+                for k, band in zip(ks, out.unbind(0)):
+                    outc[k] = band
+            if by_rows:
+                while outc[0].shape[-1] < Wl:
+                    outc = [_triangle_up2(b, -1) for b in outc]
+                while outc[0].shape[-2] < Hl:
+                    outc = up2_sharded(outc, vloc // (Hl // outc[0].shape[-2]))
+            else:
+                while outc[0].shape[-1] < Wl:
+                    outc = up2_sharded(outc, vloc // (Wl // outc[0].shape[-1]))
+                while outc[0].shape[-2] < Hl:
+                    outc = [_triangle_up2(b, -2) for b in outc]
+            planes.append([b[:Hl, :Wl] for b in outc])
+        bands = [torch.stack([planes[c][k] for c in range(3)])
+                 for k in range(len(shards))]
+        bands = _sharded_filter_tail(bands, [x[12] for x in shards], mesh,
+                                     gabor_weights, epf_params, vloc,
+                                     last_shard, by_rows)
+        return _join(mesh, bands, by_rows, crop)
+
+    return pipeline
 
 
 # -- the staged path's stages (render/vardct.py _run_staged) ---------------

@@ -31,8 +31,10 @@ of its channels). Under a decode region (render/roi.py, api.py
 `set_image_region`) a one-shot render decodes only the sections that
 meet the region, and a VarDCT frame's fused program computes only the
 group-aligned rect around it (`device_rect`); the planes keep the
-frame's size, zero outside the rect. The sharded programs stay unported
-(ROADMAP Queue 1 item 13).
+frame's size, zero outside the rect. Under a decode mesh (parallel/)
+the VarDCT device stage runs sharded and the rect is ignored (the frame
+renders whole and is cut later), and the Modular device tail runs in row
+bands.
 Colour stays as coded (YCbCr for a YCbCr frame, XYB for an XYB image):
 the colour transform runs at compositing (render/context.py) or at the
 end (api.py `_postprocess`).

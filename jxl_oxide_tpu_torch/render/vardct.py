@@ -24,8 +24,10 @@ VarDCT state in a `ProgressiveCache` between renders (render/render.py
 complete, and each render runs the device pipeline on them again. Under
 a decode region (render/roi.py) both fused programs compute only a
 group-aligned rect of the planes (their `rect` legs), embedded in zero
-planes of the frame's size. The sharded paths are not ported yet
-(ROADMAP Queue 1 item 13).
+planes of the frame's size. Under a decode mesh (parallel/) both fused
+programs run sharded by bands of whole groups (`_run_fused_sharded`,
+`_run_fused_subsampled_sharded`), and a rect is ignored as the JAX
+package ignores it: the frame renders whole and is cut later.
 """
 
 from __future__ import annotations
@@ -763,12 +765,24 @@ class VardctFrameState:
 
         Subsampled frames never carry adaptive LF smoothing (rejected at
         FrameHeader.parse) or an LF-frame override (jpeg_upsampling is only
-        coded when !use_lf_frame, header.rs:25)."""
+        coded when !use_lf_frame, header.rs:25).
+
+        Under a decode mesh (parallel/ use_decode_mesh) both fused paths
+        run sharded over it, on `device` = the mesh's home device, and
+        `rect` is ignored (jxl_oxide_tpu/render/vardct.py:756-770)."""
+        from ..parallel import get_decode_mesh
+
         self.filters_applied = False
         self.chroma_upsampled = False
+        mesh = get_decode_mesh()
+        if self.subsampled:
+            assert self.lf_override is None
+        if mesh is not None:
+            if not self.subsampled:
+                return self._run_fused_sharded(hf_global, mesh)
+            return self._run_fused_subsampled_sharded(hf_global, mesh)
         if not self.subsampled:
             return self._run_fused(hf_global, device, rect)
-        assert self.lf_override is None
         return self._run_fused_subsampled(hf_global, device, rect)
 
     _fused_cache: dict = {}
@@ -1095,13 +1109,15 @@ class VardctFrameState:
         return out
 
     def _subsampled_channel_plans(self, hf_global: HfGlobal | None,
-                                  rect=None):
+                                  rect=None, plan_shapes=None):
         """Per-channel (entries, code_grid, mul_grid, matrices) dense
         plans of the fused subsampled program, with the qm scales; None
         when a channel's plan overflows (the staged path). `rect`
         (full-resolution plane pixels, group-aligned origin) keeps each
         channel's blocks inside it, rebased to its origin at the channel's
-        shift (jxl_oxide_tpu/render/vardct.py:1337-1374)."""
+        shift (jxl_oxide_tpu/render/vardct.py:1337-1374); `plan_shapes`
+        overrides the block-grid shapes (the sharded program plans over
+        the padded grid)."""
         header = self.header
         qm_scale = (
             0.8 ** (header.x_qm_scale - 2),
@@ -1131,6 +1147,8 @@ class VardctFrameState:
                         rbuckets.append(_Bucket(b.sel, sub, rect_shape,
                                                 lf_shape))
                 buckets = rbuckets
+            if plan_shapes is not None:
+                lf_shape = plan_shapes[c]
             entries, code_grid, mul_grid = self.dense_plan(buckets, lf_shape)
             if len(entries) > DENSE_PLAN_MAX_ENTRIES:
                 return None
@@ -1297,6 +1315,337 @@ class VardctFrameState:
             return self._run_staged(hf_global, device)
         self.chroma_upsampled = True
         return out
+
+    @staticmethod
+    def _shard_geometry(mesh, group_dim: int, H: int, W: int) -> dict:
+        """How a frame of full-resolution planes H x W shards over `mesh`
+        (jxl_oxide_tpu/render/vardct.py:1139-1158): along the dimension
+        with more group bands (a wide frame sharded by rows would put all
+        work on one shard), in bands of `loc` (whole groups), padded to
+        `pad_to`; `last_shard` holds the valid edge at local offset
+        `vloc`, later shards only padding."""
+        n_sh = mesh.size
+        group_rows = _ceil_div(H, group_dim)
+        group_cols = _ceil_div(W, group_dim)
+        by_rows = group_rows >= group_cols
+        S = H if by_rows else W
+        loc = _ceil_div(group_rows if by_rows else group_cols,
+                        n_sh) * group_dim
+        last_shard = min(n_sh - 1, (S - 1) // loc)
+        return dict(by_rows=by_rows, loc=loc, pad_to=n_sh * loc,
+                    last_shard=last_shard, vloc=S - last_shard * loc)
+
+    @staticmethod
+    def _pad_dim(a, size: int, axis: int):
+        """`a` (numpy or a tensor) zero-padded to `size` along `axis`."""
+        if a.shape[axis] == size:
+            return a
+        if isinstance(a, torch.Tensor):
+            widths = [0, 0] * (a.dim() - 1 - axis % a.dim()) + [
+                0, size - a.shape[axis]]
+            return torch.nn.functional.pad(a, widths)
+        widths = [(0, 0)] * a.ndim
+        widths[axis] = (0, size - a.shape[axis])
+        return np.pad(a, widths)
+
+    @staticmethod
+    def _slab(a, s_: int, loc: int, axis: int):
+        """Shard s_'s band of `a` along `axis`."""
+        sl = [slice(None)] * a.ndim
+        sl[axis] = slice(s_ * loc, (s_ + 1) * loc)
+        return a[tuple(sl)]
+
+    def _place_shards(self, mesh, per_shard: list) -> list:
+        """Each local shard's host inputs on its device, one copy a shard
+        (upload_inputs); a tensor input (an LF frame's band) goes to the
+        shard's device first."""
+        from ..ops.vardct_pipeline import upload_inputs
+
+        placed = []
+        with span("Upload"):
+            for s_, inputs in zip(mesh.local, per_shard):
+                dev = mesh.devices[s_]
+                inputs = [x.to(dev) if isinstance(x, torch.Tensor) else x
+                          for x in inputs]
+                placed.append(upload_inputs(inputs, dev))
+        return placed
+
+    @traced("Dequant and transform (sharded)")
+    def _run_fused_sharded(self, hf_global: HfGlobal | None, mesh):
+        """The fused 4:4:4 program over a decode mesh
+        (jxl_oxide_tpu/render/vardct.py:1111-1309): bands of whole 256px
+        groups, rows of groups for tall frames, columns for wide ones; the
+        sharded dimension padded up to the next mesh multiple, so any
+        frame geometry shards, with no single-device fallback. The dense
+        plan is made over the padded grid and falls back to the staged
+        path (on the home device) over DENSE_PLAN_MAX_ENTRIES; the
+        coefficients go up per shard, sparse when that beats dense int16.
+        Returns [x, y, b] frame-size planes on the mesh's home device."""
+        from ..ops.vardct_pipeline import build_fused_pipeline_sharded
+        from ..parallel import mesh_fingerprint
+
+        with span("Fused program inputs"):
+            hi = self._fused_host_inputs(hf_global)
+        header = self.header
+        quantizer = hi["quantizer"]
+        corr = hi["corr"]
+        n_sh = mesh.size
+        H, W = self.plane_shapes[0]
+        LH, LW = self.lf_shapes[0]
+        g = self._shard_geometry(mesh, header.group_dim, H, W)
+        by_rows, loc, pad_to = g["by_rows"], g["loc"], g["pad_to"]
+        last_shard, vloc = g["last_shard"], g["vloc"]
+        loc_lf = loc // 8
+        # H and loc are multiples of 8: the pixel and LF grids agree on
+        # the shard index
+        vloc_lf = (LH if by_rows else LW) - last_shard * loc_lf
+        pax = 1 if by_rows else 2   # sharded axis in [3, H, W] stacks
+        gax = 0 if by_rows else 1   # sharded axis in 2-D grids
+        pad = self._pad_dim
+
+        coeff_stack = pad(hi["coeff_stack"], pad_to, pax)
+        lf_input = pad(hi["lf_input"], n_sh * loc_lf, pax)
+        # sparse per-shard coefficient upload when it beats dense int16
+        nz_total = int(np.count_nonzero(coeff_stack))
+        sparse_n = None
+        if nz_total * 6 * n_sh < coeff_stack.size * 2 // 2:
+            per_shard_nz = [
+                int(np.count_nonzero(self._slab(coeff_stack, s_, loc, pax)))
+                for s_ in range(n_sh)
+            ]
+            sparse_n = 1 << max(
+                10, int(max(max(per_shard_nz), 1) - 1).bit_length())
+        x_grid = pad(hi["x_grid"], pad_to // 64, gax)
+        b_grid = pad(hi["b_grid"], pad_to // 64, gax)
+        sigma_blocks = pad(hi["sigma_blocks"], pad_to // 8, gax)
+        cfl_const = bool(not x_grid.any() and not b_grid.any())
+
+        # the dense plan over the PADDED block grid; the entry-id and mul
+        # grids shard like the sigma grid (band bases are whole group
+        # bands, so residues are the same in every band)
+        plan_shape = ((pad_to // 8, W // 8) if by_rows
+                      else (H // 8, pad_to // 8))
+        entries, code_grid, mul_grid = self.dense_plan(hi["buckets"],
+                                                       plan_shape)
+        if len(entries) > DENSE_PLAN_MAX_ENTRIES:
+            return self._run_staged(hf_global, mesh.home_device)
+
+        local_plane = (loc, W) if by_rows else (H, loc)
+        local_lf = (loc_lf, LW) if by_rows else (LH, loc_lf)
+        qm_scale = hi["qm_scale"]
+        kx, kb = hi["kx"], hi["kb"]
+        epf_params = hi["epf_params"]
+        key = (
+            "sharded", sparse_n, cfl_const, mesh_fingerprint(mesh),
+            by_rows, local_plane, local_lf, vloc, vloc_lf, last_shard,
+            (LH, LW), entries,
+            tuple(float(q) for q in self.opsin.quant_bias),
+            float(self.opsin.quant_bias_numerator),
+            quantizer.global_scale, qm_scale, hi["lf_smooth_scale"],
+            hi["skip_smoothing"], (float(kx), float(kb)),
+            corr.colour_factor,
+            (corr.base_correlation_x, corr.base_correlation_b),
+            hi["gabor_weights"],
+            (epf_params.iters, epf_params.sharp_lut, epf_params.channel_scale,
+             epf_params.pass0_sigma_scale, epf_params.pass2_sigma_scale,
+             epf_params.border_sad_mul) if epf_params else None,
+            tuple(sorted((sel, m.tobytes())
+                         for sel, m in hi["matrices"].items())),
+            (self.height, self.width),
+        )
+
+        def make_fn(device=None):
+            return build_fused_pipeline_sharded(
+                mesh, local_plane, local_lf, entries, hi["matrices"],
+                tuple(float(q) for q in self.opsin.quant_bias),
+                float(self.opsin.quant_bias_numerator),
+                quantizer.global_scale, qm_scale, hi["lf_smooth_scale"],
+                hi["skip_smoothing"], vloc, vloc_lf, (LH, LW), last_shard,
+                cfl_lf_k=(float(kx), float(kb)),
+                cfl_colour_factor=corr.colour_factor,
+                cfl_base=(corr.base_correlation_x, corr.base_correlation_b),
+                gabor_weights=hi["gabor_weights"],
+                epf_params=epf_params,
+                sparse_coeff_n=sparse_n,
+                crop=(self.height, self.width),
+                cfl_const=cfl_const,
+                shard_dim="rows" if by_rows else "cols",
+            )
+
+        fn = self.program(key, make_fn, mesh.home_device)
+        if sparse_n is None and np.abs(coeff_stack).max(initial=0) < 32768:
+            coeff_stack = coeff_stack.astype(np.int16)
+        per_shard = []
+        with span("Fused program inputs"):
+            for s_ in mesh.local:
+                slab = np.ascontiguousarray(
+                    self._slab(coeff_stack, s_, loc, pax))
+                coeff_input = (slab if sparse_n is None
+                               else self._sparse_shard(slab, sparse_n))
+                per_shard.append([
+                    coeff_input, self._slab(lf_input, s_, loc_lf, pax),
+                    hi["lf_scale_arr"],
+                    self._slab(x_grid, s_, loc // 64, gax),
+                    self._slab(b_grid, s_, loc // 64, gax),
+                    self._slab(sigma_blocks, s_, loc // 8, gax),
+                    self._slab(code_grid, s_, loc // 8, gax),
+                    self._slab(mul_grid, s_, loc // 8, gax),
+                ])
+        placed = self._place_shards(mesh, per_shard)
+        with span("Fused program"):
+            out = fn(placed)
+        self.filters_applied = True
+        self._planes_poolable = True  # the host inputs are plane copies
+        return [out[0], out[1], out[2]]
+
+    @staticmethod
+    def _sparse_shard(slab: np.ndarray, sparse_n: int) -> tuple:
+        """One shard's sparse upload (jxl_oxide_tpu/render/vardct.py:
+        1250-1278): i32 flat indices of its nonzero coefficients,
+        ascending, padded with ascending out-of-bounds indices (dropped
+        on the device), and the values as i16 where they fit."""
+        from .. import native as _native
+
+        c_idx = np.zeros(sparse_n, dtype=np.int32)
+        c_val = np.zeros(sparse_n, dtype=np.int32)
+        if _native.available():
+            cnt, max_abs = _native.sparse_extract(slab.reshape(-1), c_idx,
+                                                  c_val)
+            nzn = min(int(cnt), sparse_n)
+        else:
+            nzf = np.flatnonzero(slab)
+            c_idx[: nzf.size] = nzf
+            c_val[: nzf.size] = slab.reshape(-1)[nzf]
+            max_abs = int(np.abs(c_val).max(initial=0))
+            nzn = nzf.size
+        c_idx[nzn:] = slab.size + np.arange(sparse_n - nzn, dtype=np.int32)
+        return c_idx, (c_val.astype(np.int16) if max_abs < 32768 else c_val)
+
+    @traced("Dequant and transform (subsampled, sharded)")
+    def _run_fused_subsampled_sharded(self, hf_global: HfGlobal | None,
+                                      mesh):
+        """The fused subsampled program over a decode mesh
+        (jxl_oxide_tpu/render/vardct.py:1557-1703): bands of whole groups;
+        each channel's stored plane shards at its shifted band size, the
+        chroma upsample takes a 1-sample stored-resolution halo, and the
+        filter tail is the 4:4:4 sharded program's. Dense coefficient
+        uploads; the staged path (on the home device) when a channel's
+        plan overflows."""
+        from ..ops.vardct_pipeline import (
+            build_fused_pipeline_subsampled_sharded,
+        )
+        from ..parallel import mesh_fingerprint
+
+        header = self.header
+        quantizer = self.frame.lf_global.vardct.quantizer
+        lf_dequant = self.frame.lf_global.lf_dequant
+        scale_inv = quantizer.global_scale * quantizer.quant_lf
+        precision_scale = 1 << (9 - self.extra_precision)
+        lf_scale = tuple(
+            float(lf_dequant[c] * precision_scale / scale_inv)
+            for c in range(3)
+        )
+        H, W = self.height_rounded, self.width_rounded
+        g = self._shard_geometry(mesh, header.group_dim, H, W)
+        by_rows, loc, pad_to = g["by_rows"], g["loc"], g["pad_to"]
+        last_shard, vloc = g["last_shard"], g["vloc"]
+        pax = 0 if by_rows else 1  # sharded axis in per-channel 2-D grids
+        pad = self._pad_dim
+
+        # per-channel plans over the padded block grid
+        plan_shapes = []
+        for c in range(3):
+            hs, vs = self.shifts[c]
+            pad_c = pad_to >> (vs if by_rows else hs)
+            Hc, Wc = self.plane_shapes[c]
+            plan_shapes.append((pad_c // 8, Wc // 8) if by_rows
+                               else (Hc // 8, pad_c // 8))
+        with span("Fused program inputs"):
+            planned = self._subsampled_channel_plans(
+                hf_global, plan_shapes=plan_shapes)
+        if planned is None:
+            return self._run_staged(hf_global, mesh.home_device)
+        plans, qm_scale = planned
+
+        rf = header.restoration_filter
+        gabor_weights = (
+            tuple(map(tuple, rf.gab.weights)) if rf.gab.enabled else None
+        )
+        epf_params = rf.epf if rf.epf.enabled else None
+        sigma_blocks = pad(self._sigma_blocks_grid(), pad_to // 8, pax)
+        entries3 = tuple(p[0] for p in plans)
+        matrices3 = tuple(p[3] for p in plans)
+        inputs, locs = [], []
+        local_plane_shapes, local_lf_shapes = [], []
+        for c in range(3):
+            hs, vs = self.shifts[c]
+            sshift = vs if by_rows else hs
+            pad_c = pad_to >> sshift
+            loc_c = loc >> sshift
+            coeff = pad(self.coeff_planes[c], pad_c, pax)
+            if np.abs(coeff).max(initial=0) < 32768:
+                coeff = coeff.astype(np.int16)
+            lf_q = pad(self.lf_quant_planes[c], pad_c // 8, pax)
+            inputs.append((coeff, lf_q, plans[c][1], plans[c][2]))
+            locs.append(loc_c)
+            Hc, Wc = self.plane_shapes[c]
+            if by_rows:
+                local_plane_shapes.append((loc_c, Wc))
+                local_lf_shapes.append((loc_c // 8, Wc // 8))
+            else:
+                local_plane_shapes.append((Hc, loc_c))
+                local_lf_shapes.append((Hc // 8, loc_c // 8))
+        local_full = (loc, W) if by_rows else (H, loc)
+
+        key = (
+            "sub_sharded", mesh_fingerprint(mesh), by_rows,
+            tuple(local_plane_shapes), local_full, vloc, last_shard,
+            entries3,
+            tuple(float(q) for q in self.opsin.quant_bias),
+            float(self.opsin.quant_bias_numerator),
+            quantizer.global_scale, qm_scale, lf_scale,
+            gabor_weights,
+            (epf_params.iters, epf_params.sharp_lut, epf_params.channel_scale,
+             epf_params.pass0_sigma_scale, epf_params.pass2_sigma_scale,
+             epf_params.border_sad_mul) if epf_params else None,
+            tuple(
+                tuple(sorted((sel, m.tobytes()) for sel, m in mats.items()))
+                for mats in matrices3
+            ),
+            (self.height, self.width),
+        )
+
+        def make_fn(device=None):
+            return build_fused_pipeline_subsampled_sharded(
+                mesh, tuple(local_plane_shapes), tuple(local_lf_shapes),
+                local_full, entries3, matrices3,
+                tuple(float(q) for q in self.opsin.quant_bias),
+                float(self.opsin.quant_bias_numerator),
+                quantizer.global_scale, qm_scale, lf_scale,
+                vloc, last_shard,
+                gabor_weights=gabor_weights,
+                epf_params=epf_params,
+                crop=(self.height, self.width),
+                shard_dim="rows" if by_rows else "cols",
+            )
+
+        fn = self.program(key, make_fn, mesh.home_device)
+        per_shard = []
+        for s_ in mesh.local:
+            shard = []
+            for (coeff, lf_q, code, mul), loc_c in zip(inputs, locs):
+                shard += [self._slab(coeff, s_, loc_c, pax),
+                          self._slab(lf_q, s_, loc_c // 8, pax),
+                          self._slab(code, s_, loc_c // 8, pax),
+                          self._slab(mul, s_, loc_c // 8, pax)]
+            shard.append(self._slab(sigma_blocks, s_, loc // 8, pax))
+            per_shard.append(shard)
+        placed = self._place_shards(mesh, per_shard)
+        with span("Fused program"):
+            out = fn(placed)
+        self.filters_applied = True
+        self.chroma_upsampled = True
+        return [out[0], out[1], out[2]]
 
     @traced("Dequant and transform (staged)")
     def _run_staged(self, hf_global: HfGlobal | None, device):

@@ -15,6 +15,11 @@
 
 `output="device"` keeps the results on the card: views of the one
 stacked tensor of each group, no readback.
+
+`mesh=` passes through to JxlImage with its other keywords: the
+per-image decodes run sharded over it, and the stacks run unsharded on
+its home device, as the JAX package's stacked path runs its single-device
+programs (jxl_oxide_tpu/serving.py:224-262).
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ def decode_batch(streams: Sequence[bytes], *, frame: int = 0,
     output: "u8" ([H, W, C] uint8, host), "f32" (float32, host),
     "device" ([H, W, C] float32 left on the decode device, no host
     readback), or "render" (the Render object). builder_kwargs pass
-    through to JxlImage (device=, num_threads=). Results are returned in
+    through to JxlImage (device=, num_threads=, mesh=). Results are returned in
     input order; a failed decode raises (the remaining futures are still
     awaited)."""
     if output not in _OUTPUT_KINDS:
@@ -242,8 +247,8 @@ def decode_batch_stacked(streams: Sequence[bytes], *, frame: int = 0,
 
     output: "u8" / "f32" (host readback) or "device" ([H, W, C] float32
     views of the group's one stacked tensor, left on the decode device);
-    "render" runs decode_batch. builder_kwargs (device=, ...) pass through
-    to JxlImage. Results come back in input order."""
+    "render" runs decode_batch. builder_kwargs (device=, mesh=, ...) pass
+    through to JxlImage. Results come back in input order."""
     if output not in ("u8", "f32", "device"):
         return decode_batch(streams, frame=frame, output=output,
                             num_workers=num_workers, **builder_kwargs)

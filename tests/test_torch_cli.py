@@ -19,7 +19,6 @@ import torch
 import torch_parity as tp
 from jxl_oxide_tpu import cli as jax_cli
 from jxl_oxide_tpu_torch import JxlImage, cli
-from jxl_oxide_tpu_torch.utils.errors import JxlNotSupportedError
 
 CPU = ["--device", "cpu"]
 # the fixtures whose JAX `info` JSON is committed (frontends.json)
@@ -229,13 +228,23 @@ def test_module_entry_in_a_subprocess():
 
 
 def test_num_devices_raises_citing_item_13(tmp_path, streams):
+    """--device cpu --num-devices 2 decodes over two CPU shards to the
+    single-device PNG, byte for byte; --num-devices on CUDA with fewer
+    cards than asked raises a clear error. (The name is this test's from
+    before the sharded decode was ported, when the option raised.)"""
     src = _write(tmp_path, "in.jxl", streams["vardct"])
-    argv = ["decode", src, "--num-devices", "2", *CPU]
-    rc, _, err = run(cli.main, argv)
-    assert rc == 1 and "item 13" in err
-    args = cli._build_parser().parse_args(argv)
-    with pytest.raises(JxlNotSupportedError, match="item 13"):
-        cli._decode_once(streams["vardct"], args)
+    pngs = []
+    for extra in ([], ["--num-devices", "2"]):
+        out = os.path.join(tmp_path, f"out{len(pngs)}.png")
+        rc, _, err = run(cli.main, ["decode", src, "-o", out, *CPU, *extra])
+        assert rc == 0, err
+        with open(out, "rb") as f:
+            pngs.append(f.read())
+    assert pngs[0] == pngs[1]
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match=f"{cards} CUDA device"):
+        cli.main(["decode", src, "-o", os.path.join(tmp_path, "x.png"),
+                  "--num-devices", str(cards + 1)])
 
 
 def test_default_device_is_cuda(tmp_path, streams):

@@ -746,3 +746,75 @@ def test_clear_program_caches_on_cuda(cuda):
     again = JxlImage.from_bytes(data).render_frame(0).to_u8()
     assert epf_step_cuda.launches - before == 2
     assert np.array_equal(first, again)
+
+
+@pytest.mark.parametrize("name,n", [("flagship_1024", 3), ("ycbcr420_1024", 4),
+                                    ("wide_epf_1024x256", 4),
+                                    ("wide_420_1024x256", 2)])
+def test_mesh_decode_on_one_card(cuda, name, n):
+    """n shards on cuda:0 (decode_mesh(n, devices=[...] * n)): planes and
+    u8 equal to the card's single-device decode bit for bit, K1 launched
+    once a pass (the bands of one card go as one stack), 1 LSB from the
+    reference."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.parallel import decode_mesh
+
+    data, ref = tp.fixture(name)
+    single = JxlImage.from_bytes(data).render_frame(0)
+    before = epf_step_cuda.launches
+    got = JxlImage.from_bytes(
+        data, mesh=decode_mesh(n, devices=["cuda:0"] * n)).render_frame(0)
+    assert epf_step_cuda.launches - before == 2
+    assert torch.equal(torch.stack(got.planes), torch.stack(single.planes))
+    u8 = got.to_u8()
+    assert np.array_equal(u8, single.to_u8())
+    assert tp.max_lsb(u8, ref) <= 1
+
+
+@pytest.mark.parametrize("rows", [True, False])
+def test_k1_band_route_on_cuda(cuda, rows):
+    """epf_step_bands on the card (K1 on the stack of haloed bands) within
+    2e-5 of the plain prepad form on the same bands."""
+    from jxl_oxide_tpu_torch.ops.cuda.epf import (
+        BAND_HALO,
+        epf_step_bands,
+        epf_step_cuda,
+    )
+    from jxl_oxide_tpu_torch.ops.filters import epf_step
+    from jxl_oxide_tpu_torch.parallel import (
+        decode_mesh,
+        halo_pad_cols,
+        halo_pad_rows,
+    )
+
+    n, loc, dim = 4, 64, -2 if rows else -1
+    shape = (3, n * loc, 96) if rows else (3, 96, n * loc)
+    p, s = tp.epf_inputs(shape, seed=3)
+    planes = torch.from_numpy(p).to(cuda)
+    sigma = torch.from_numpy(s).to(cuda)[None]
+    mesh = decode_mesh(n, devices=["cuda:0"] * n)
+    bands = list(planes.split(loc, dim))
+    sig = list(sigma.split(loc, dim))
+    pad = halo_pad_rows if rows else halo_pad_cols
+    sig8 = [x[0] for x in pad(sig, BAND_HALO, mesh, loc, n - 1)]
+    before = epf_step_cuda.launches
+    got = epf_step_bands(bands, sig8, 1, CS, 1.0, BSM, mesh, loc, n - 1, dim)
+    assert epf_step_cuda.launches - before == 1
+    kw = {"prepad_rows": 3} if rows else {"prepad_cols": 3}
+    for g, b, s_ in zip(got, pad(bands, 3, mesh, loc, n - 1), sig):
+        want = epf_step(b, s_[0], 1, CS, 1.0, BSM, **kw)
+        assert float((g - want).abs().max()) <= 2e-5
+
+
+def test_graft_entry_torch_on_cuda(cuda):
+    """graft_entry_torch.py on the card: entry() decodes the flagship's
+    planes, and dryrun_multichip over 2 shards of cuda:0 holds every
+    fixture bit for bit."""
+    import graft_entry_torch as g
+
+    fn, args = g.entry()
+    assert tuple(fn(*args).shape) == (3, 1024, 1024)
+    g.dryrun_multichip(2, devices=["cuda:0"] * 2)

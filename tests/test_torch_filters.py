@@ -72,12 +72,34 @@ def test_gabor_matches_jax(shape):
 
 
 def test_halo_forms_raise():
-    planes = torch.zeros((3, 8, 8))
-    sigma = torch.ones((8, 8))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tf.epf_step(planes, sigma, 1, CS, 1.0, BSM, prepad_rows=3)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tf.gabor(planes[0], (0.1, 0.1), prepad_cols=1)
+    """The halo (prepad) forms, which the sharded programs run on bands
+    with real rows or columns from their neighbours attached, against the
+    JAX package's: EPF prepad_rows=3 and prepad_cols=3, gaborish
+    prepad_rows=1 and prepad_cols=1. (The name is this test's from before
+    the forms were ported, when they raised.)"""
+    planes, sigma = tp.epf_inputs((3, 22, 17))
+    for step, mult in STEPS:
+        want = np.asarray(jf.epf_step(planes, sigma[3:-3], step, CS, mult,
+                                      BSM, prepad_rows=3))
+        got = tf.epf_step(torch.from_numpy(planes),
+                          torch.from_numpy(sigma[3:-3]), step, CS, mult, BSM,
+                          prepad_rows=3).numpy()
+        assert got.shape == (3, 16, 17)
+        np.testing.assert_allclose(got, want, atol=EPF_ATOL, rtol=0)
+        want = np.asarray(jf.epf_step(planes, sigma[:, 3:-3], step, CS,
+                                      mult, BSM, prepad_cols=3))
+        got = tf.epf_step(torch.from_numpy(planes),
+                          torch.from_numpy(sigma[:, 3:-3]), step, CS, mult,
+                          BSM, prepad_cols=3).numpy()
+        assert got.shape == (3, 22, 11)
+        np.testing.assert_allclose(got, want, atol=EPF_ATOL, rtol=0)
+    w = (0.115169525, 0.061248592)
+    for kw, shape in (({"prepad_rows": 1}, (20, 17)),
+                      ({"prepad_cols": 1}, (22, 15))):
+        want = np.asarray(jf.gabor(planes[0], w, **kw))
+        got = tf.gabor(torch.from_numpy(planes[0]), w, **kw).numpy()
+        assert got.shape == shape
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
 def test_wrapper_uses_plain_version_only_on_cpu():

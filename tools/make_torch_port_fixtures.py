@@ -852,6 +852,15 @@ def fixtures() -> dict:
         # a container with metadata boxes and a jbrd box: the front ends'
         # aux accessors and JPEG reconstruction
         "jbrd_container_256": jbrd_container_256,
+        # wide frames for the sharded decode: one group row and four group
+        # columns, so a mesh shards them by COLUMN bands; the flagship
+        # recipe (gaborish + 2 EPF passes) and the 4:2:0 recipe of
+        # ycbcr420_1024 (the chroma upsample's halo along columns)
+        "wide_epf_1024x256": lambda: encode_jxl_vardct(
+            smooth_rgb(256, 1024, 80), gabor=True, epf_iters=2),
+        "wide_420_1024x256": lambda: ycbcr_stream(256, 1024, (0, 1, 0), 81,
+                                                  0.2, gabor=True,
+                                                  epf_iters=2),
         "alpha_shift_512": lambda: encode_jxl_modular(
             smooth_u8(512, 512, 54) + [smooth_alpha(128, 128, 55)],
             bit_depth=8, extra_alpha=True, alpha_dim_shift=2,
