@@ -178,7 +178,17 @@ Phases, each fatal (non-zero exit, no "ok" line):
      sharded program and the halo exchange inside); the CLI's decode
      --num-devices 1. With two cards or more, the flagship over real
      cards and tools/torch_multihost_check.py over NCCL; else the run
-     says they did not run.
+     says they did not run;
+ 14. the two YCbCr layouts of ROADMAP item 7 (`phase_ycbcr`): each of
+     YCBCR_FIXTURES (4:4:4 YCbCr VarDCT; 4:2:0 YCbCr Modular on the
+     device tail) within 1 LSB of its reference, its K1, K9 and K12
+     launches counted and each K1 and K9 launch held against the plain
+     version and timed beside its bound; the decode warm and cold
+     (`cold_decode`) by span, one traced decode; a region against the JAX
+     package's; the decode over 4 shards of cuda:0 bit for bit the
+     single-device one; 4 x ycbcr444_1024 stacked, 0 pixels different
+     from the per-image decode; the port's generate-fixture on this host
+     against the committed SHA-256 of tools/'s output.
 The EPF timing helpers are the port's (ops/cuda/epf_measure.py);
 tools/epf_variants.py times other versions of the kernel against this one.
 The squeeze's are ops/cuda/squeeze_measure.py (the probe among them);
@@ -934,15 +944,19 @@ SPLIT_SPANS = ("Host entropy stage", "Frame device stage", "Composite")
 
 
 def log_warm_split(name: str, u8: np.ndarray, run, split_spans,
-                   nested=()) -> dict:
+                   nested=(), prepare=None) -> dict:
     """Warm timings of run() (one decode), median of 5: end to end, then
     the same decode split by the port's spans `split_spans` (host clock;
     the readback in to_u8 waits for the card, so device work queued by
     the device stage can land in "rest"), and the spans `nested` inside
-    them, each on its own. Returns the medians by span, with "e2e"."""
+    them, each on its own. With `prepare`, it runs before each decode,
+    outside the timing (`cold_decode`: the decodes are then cold). Returns
+    the medians by span, with "e2e"."""
     import torch
 
     def decode():
+        if prepare is not None:
+            prepare()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
@@ -965,7 +979,8 @@ def log_warm_split(name: str, u8: np.ndarray, run, split_spans,
     mp = u8.shape[0] * u8.shape[1] / 1e6
     e2e = statistics.median(e2e_ms)
     log(f"{name}: end to end {mp / e2e * 1e3:.2f} MP/s ({e2e:.2f} ms), "
-        "warm median of 5; the same decode by span, median of 5: "
+        f"{'cold' if prepare else 'warm'} median of 5; the same decode by "
+        "span, median of 5: "
         + ", ".join(f"{k} {med[k]:.2f}" for k in split_spans)
         + f", rest (postprocess, readback) {med['rest']:.2f}, of "
         f"{med['wall']:.2f} ms"
@@ -2524,6 +2539,191 @@ def phase_mesh(device, probe: dict) -> tuple[dict, dict]:
     return k1_paths, k9_paths
 
 
+# the two YCbCr layouts of ROADMAP item 7 (phase_ycbcr): (name, K1
+# launches, K9 launches) of one decode on the card: 4:4:4 YCbCr VarDCT
+# (the fused 4:4:4 program with adaptive LF smoothing, its region rendered
+# whole and cut) and lossless 4:2:0 YCbCr Modular (K9 on the squeeze of
+# its Cb plane on the device tail, K1 on the upsampled planes)
+YCBCR_FIXTURES = (("ycbcr444_1024", 2, 0), ("modular_420_1024", 2, 1))
+# the stacked decode of phase_ycbcr: this many ycbcr444_1024 streams
+YCBCR_STACK = 4
+# the sharded decodes of phase_ycbcr: shards of cuda:0
+YCBCR_SHARDS = 4
+
+
+def cold_decode() -> None:
+    """Before a cold decode: the port's process-wide caches released
+    (clear_program_caches: the fused programs, the plane pool, the device
+    tables) and the L2 cache overwritten (256 MB written on the card)."""
+    import torch
+
+    from jxl_oxide_tpu_torch import clear_program_caches
+
+    clear_program_caches()
+    torch.empty(64 << 20, dtype=torch.int32, device="cuda").fill_(1)
+    torch.cuda.synchronize()
+
+
+def generate_fixture_digests() -> list:
+    """The port's generate-fixture (cli.py, encoders/: numpy on the host)
+    for each form of generate_fixture.json, in process and once as
+    `python3 -m jxl_oxide_tpu_torch` in a subprocess: (args, SHA-256 equal
+    to the committed one of the JAX CLI's output, ms) of each."""
+    import contextlib
+    import hashlib
+    import io
+    import subprocess
+    import tempfile
+
+    from jxl_oxide_tpu_torch import cli
+
+    with open(os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata",
+                           "generate_fixture.json")) as f:
+        forms = json.load(f)["forms"]
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "g.jxl")
+        for form in forms:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc = cli.main(["generate-fixture", "-o", out, *form["args"]])
+            ms = (time.perf_counter() - t0) * 1e3
+            with open(out, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            rows.append((form["args"], rc == 0 and digest == form["sha256"],
+                         ms))
+            os.remove(out)
+        res = subprocess.run(
+            [sys.executable, "-m", "jxl_oxide_tpu_torch", "generate-fixture",
+             "-o", out, *forms[-1]["args"]], cwd=tmp, capture_output=True,
+            text=True, timeout=120,
+            env=dict(os.environ, PYTHONPATH=REPO))
+        with open(out, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        rows.append((["python3 -m jxl_oxide_tpu_torch", *forms[-1]["args"]],
+                     res.returncode == 0 and digest == forms[-1]["sha256"],
+                     None))
+    return rows
+
+
+def phase_ycbcr(device, probe: dict) -> tuple[dict, dict]:
+    """The two YCbCr layouts of ROADMAP item 7 on the card (this slice's
+    path): each of YCBCR_FIXTURES through render_frame(0).to_u8() with its
+    K1, K9 and K12 launches counted from 0 just before and read just
+    after, within 1 LSB of its reference; each K1 launch within EPF_ATOL
+    of the plain version and each K9 launch bit for bit, timed beside
+    their bounds (phases 3 and 3b: K1's byte bound, K9's chain bound);
+    the decode warm and cold (`cold_decode`), medians of 5 by span, and
+    one traced decode; its first region (<name>_roi.npz) within 1 LSB of
+    the JAX package's region render and equal to the crop of the full
+    render; a decode over YCBCR_SHARDS shards of cuda:0 equal to the
+    single-device decode bit for bit (planes and u8). YCBCR_STACK x
+    ycbcr444_1024 through decode_batch_stacked as one stack (one K1
+    launch a pass), 0 pixels different from the per-image decodes. The
+    port's generate-fixture on this host (no JAX here) against the
+    committed SHA-256 of tools/'s output. Returns K1's and K9's rows of
+    these paths."""
+    import torch
+
+    from jxl_oxide_tpu_torch import JxlImage, decode_batch_stacked
+    from jxl_oxide_tpu_torch.parallel import decode_mesh
+
+    k1_paths, k9_paths = {}, {}
+    tdir = os.path.join(REPO, "jxl_oxide_tpu_torch", "testdata")
+    card0 = torch.device("cuda:0")
+
+    def planes_u8(img):
+        r = img.render_frame(0)
+        return torch.stack(r.planes).cpu().numpy(), r.to_u8()
+
+    for name, k1_want, k9_want in YCBCR_FIXTURES:
+        data, ref = read_fixture(name)
+        reset_counts()
+        with capturing_kernels() as (eps, sqs):
+            planes, u8 = planes_u8(JxlImage.from_bytes(data))
+        got = read_counts()
+        diff = max_lsb(u8, ref)
+        log(f"{name}: {u8.shape}, max |u8 - reference| {diff}; launches K1 "
+            f"{got[0]}, K9 {got[1]}, K12 {got[2]} (wanted {k1_want}, "
+            f"{k9_want}, 0); K1 planes "
+            f"{sorted({tuple(a[0].shape) for a in eps})}, K9 avg "
+            f"{sorted({tuple(a[0].shape) for a in sqs})}")
+        if diff > 1:
+            raise AssertionError(f"{name}: decode differs from reference")
+        if got != (k1_want, k9_want, 0):
+            raise AssertionError(f"{name}: launches {got}")
+
+        def run():
+            return JxlImage.from_bytes(data).render_frame(0).to_u8()
+
+        warm = log_warm_split(name, u8, run, SPLIT_SPANS)
+        cold = log_warm_split(f"{name} cold", u8, run, SPLIT_SPANS,
+                              prepare=cold_decode)
+        profile_run(name, run, sum_spans=True)
+        k1_paths[name] = {"launches": got[0], "decode_warm_ms": warm["e2e"],
+                          "decode_cold_ms": cold["e2e"],
+                          **pass_rows(name, eps)}
+        if sqs:
+            k9_paths[name] = {"launches": got[1],
+                              "decode_warm_ms": warm["e2e"],
+                              "decode_cold_ms": cold["e2e"],
+                              **squeeze_row(name, sqs, probe)}
+
+        rois = np.load(os.path.join(tdir, f"{name}_roi.npz"))
+        region = rois["regions"][0].tolist()
+        left, top, w, h = region
+        reset_counts()
+        cut = JxlImage.from_bytes(data).render_frame_cropped(
+            0, region).to_u8()
+        counted = read_counts()
+        rdiff = max_lsb(cut, rois["u8_0"])
+        same = bool(np.array_equal(cut, u8[top:top + h, left:left + w]))
+        log(f"{name} region {tuple(region)}: {cut.shape}, max |u8 - JAX "
+            f"region render| {rdiff}, equal to the crop of the full render "
+            f"{same}, launches {counted}")
+        if rdiff > 1 or not same:
+            raise AssertionError(f"{name}: region render differs")
+
+        mesh = decode_mesh(YCBCR_SHARDS, devices=[card0] * YCBCR_SHARDS)
+        reset_counts()
+        sharded, su8 = planes_u8(JxlImage.from_bytes(data, mesh=mesh))
+        counted = read_counts()
+        equal = bool(sharded.shape == planes.shape
+                     and np.array_equal(sharded, planes)
+                     and np.array_equal(su8, u8))
+        log(f"{name} on {YCBCR_SHARDS} shards of cuda:0: planes and u8 equal "
+            f"to the single-device decode {equal}, launches {counted}")
+        if not equal:
+            raise AssertionError(f"{name}: sharded decode differs")
+
+    data, _ = read_fixture(YCBCR_FIXTURES[0][0])
+    one = JxlImage.from_bytes(data).render_frame(0).to_u8()
+    streams = [data] * YCBCR_STACK
+    reset_counts()
+    outs = decode_batch_stacked(streams)
+    counted = read_counts()
+    different = sum(int(np.count_nonzero((o != one).any(axis=-1)))
+                    for o in outs)
+    log(f"{YCBCR_STACK} x {YCBCR_FIXTURES[0][0]} through "
+        f"decode_batch_stacked: {different} pixels different from the "
+        f"per-image decode, launches {counted} (one K1 a pass on the stack)")
+    if different or counted[0] != YCBCR_FIXTURES[0][1]:
+        raise AssertionError("stacked 4:4:4 YCbCr decode differs")
+    stacked_ms = log_warm_split(
+        f"{YCBCR_STACK} x {YCBCR_FIXTURES[0][0]} stacked",
+        np.concatenate(outs), lambda: decode_batch_stacked(streams),
+        ("Stacked program inputs", "Upload", "Stacked program"))["e2e"]
+    log(f"stacked: {stacked_ms / YCBCR_STACK:.2f} ms an image")
+
+    for args, ok, ms in generate_fixture_digests():
+        log(f"generate-fixture {' '.join(args)}: SHA-256 equal to tools/'s "
+            f"{ok}" + (f", {ms:.1f} ms on the host" if ms is not None
+                       else ""))
+        if not ok:
+            raise AssertionError(f"generate-fixture {args} differs")
+    return k1_paths, k9_paths
+
+
 def main() -> int:
     try:
         import torch
@@ -2568,6 +2768,8 @@ def main() -> int:
     report["paths"].update(frontend_k1)
     mesh_k1, mesh_k9 = phase_mesh(device, probe)
     report["paths"].update(mesh_k1)
+    ycbcr_k1, ycbcr_k9 = phase_ycbcr(device, probe)
+    report["paths"].update(ycbcr_k1)
     report["max_abs_err"] = max([report["max_abs_err"], worst]
                                 + [p["max_abs_err"]
                                    for p in report["paths"].values()])
@@ -2587,7 +2789,7 @@ def main() -> int:
         "pyramid": pyramid,
         "paths": {MODULAR_PATH: squeeze_paths[MODULAR_PATH], **color_k9,
                   **progressive_k9, **ec_k9, **roi_k9, **frontend_k9,
-                  **mesh_k9},
+                  **mesh_k9, **ycbcr_k9},
     }
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [report, squeeze, noise]}))

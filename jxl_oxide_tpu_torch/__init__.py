@@ -15,9 +15,10 @@ render_loading_frame(); Render.stream() writes samples into caller
 buffers; set_image_region() and render_frame_cropped() decode a region.
 decode_batch, decode_iter and decode_batch_stacked (serving.py) decode
 many streams at once; the last runs same-geometry VarDCT streams as one
-stacked program. The envelope: any number of frames, VarDCT (4:4:4 or
-chroma-subsampled) or lossless Modular, any extra channels, any colour
-encoding and EXIF orientation (see ROADMAP.md). The metadata boxes
+stacked program. Every stream the JAX package decodes: any number of
+frames, VarDCT (4:4:4 in XYB, RGB or YCbCr, or chroma-subsampled YCbCr)
+or lossless Modular (chroma-subsampled YCbCr too), any extra channels,
+any colour encoding and EXIF orientation (see ROADMAP.md). The metadata boxes
 (raw_exif_data, raw_xmp, hdr_gain_map, aux_box) and reconstruct_jpeg()
 are host work; clear_program_caches() releases the cached programs. The
 front ends: the CLI (`python -m jxl_oxide_tpu_torch decode x.jxl -o

@@ -2,7 +2,7 @@
 
 Behavioral parity: jxl-oxide/src/lib.rs (JxlImage/Render) and fb.rs
 (sample conversion); the torch counterpart of jxl_oxide_tpu/api.py over
-the port's envelope. Container and header parsing is a copy of the JAX
+every layout it decodes. Container and header parsing is a copy of the JAX
 package's (host-side). `render_frame(k)` renders the frames keyframe k
 depends on (its dependency cone, on up to 4 threads), each through the
 host entropy stage and the device stage (render/render.py), composites
@@ -25,7 +25,10 @@ upsampling (ops/upsample.py); an LF frame goes to its LF slot for the
 frame that uses it.
 Then YCbCr -> RGB for YCbCr frames and the color tail (before blending
 for a blending frame, render/context.py `_convert_color_for_record`);
-the EPF is a CUDA kernel on both. A greyscale frame is one colour plane
+the EPF is a CUDA kernel on both. Every frame layout decodes: VarDCT
+4:4:4 (XYB, RGB or YCbCr) and chroma-subsampled YCbCr, Modular of
+every layout, its chroma upsampled before the filters (render/render.py
+`upsample_chroma`). A greyscale frame is one colour plane
 (cloned to three for the filters, render/render.py). The colour tail
 goes to the requested encoding (`request_color_encoding`,
 `request_icc`): an enum or an enum-expressible ICC profile takes the
@@ -49,8 +52,6 @@ band at a time (`ImageStream`).
 VarDCT programs shard by bands of whole groups with halos between
 neighbours, the Modular device tail runs in row bands, and the bands join
 on the mesh's home device, the decode device.
-Streams outside the envelope raise JxlNotSupportedError naming the
-ROADMAP item that will port them; none decodes through a hidden path.
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ import torch
 from .color.cms import PilCms
 from .color.icc import decode_icc, read_icc
 from .device import resolve_device
-from .headers.frame import BlendMode, Encoding, FrameType
+from .headers.frame import BlendMode, FrameType
 from .headers.image import (
     ColourEncoding,
     ColourSpace,
@@ -331,14 +332,8 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
                 else torch.cuda.current_device()))
 
 
-def _not_supported(what: str, item):
-    return JxlNotSupportedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})"
-    )
-
-
 class JxlImage:
-    """JPEG XL decoder over the port's envelope.
+    """JPEG XL decoder: every frame layout of the JAX package's.
 
     device: where the device stage runs; None means CUDA, and with no
     CUDA device the constructor raises. Pass device="cpu" explicitly to
@@ -684,7 +679,7 @@ class JxlImage:
         first frame's quantized coefficients (jxl-oxide lib.rs:860-904).
         Host work only: the coefficients come from the frame's host
         entropy stage (jbr/ `reconstruct_jpeg`), never from the device or
-        a render; the frame need not be in the render envelope."""
+        a render."""
         from .jbr import JpegBitstreamData, reconstruct_jpeg
 
         jbrd_payload = self.aux_box(b"jbrd")
@@ -698,33 +693,6 @@ class JxlImage:
         icc = self.embedded_icc or b""
         return reconstruct_jpeg(jbrd, self._frames[0], icc=icc, exif=exif,
                                 xmp=xmp)
-
-    # -- the envelope -------------------------------------------------------
-
-    def _check_envelope(self, frame_indices) -> None:
-        """The port's envelope, for each frame of `frame_indices` (a
-        keyframe's dependency cone: a frame that is not the target can
-        carry what the target does not). Image: any EXIF orientation, any
-        extra channels (alphas, premultiplied or not, spot colours, depth,
-        CMYK's Black and every other kind, integer or float samples, at
-        any dim_shift), any colour encoding (XYB, an RGB or grey enum, an
-        embedded ICC profile). Frames: any number, blended, cropped or
-        reference-only, with patches, splines and noise, frame and EC
-        upsampling, LF frames and LF-frame chains; VarDCT 4:4:4 or
-        chroma-subsampled YCbCr (4:2:0, 4:2:2, 4:4:0), or Modular (4:4:4
-        YCbCr included) with integer or float samples. The two YCbCr
-        layouts left raise JxlNotSupportedError naming their ROADMAP item.
-        render_loading_frame checks each frame it renders, the loading one
-        too."""
-        for i in frame_indices:
-            header = self._frames[i].header
-            subsampled = any(j != 0 for j in header.jpeg_upsampling)
-            if header.encoding == Encoding.VARDCT:
-                if header.do_ycbcr and not subsampled:
-                    raise _not_supported("4:4:4 YCbCr VarDCT", 7)
-            elif header.do_ycbcr and subsampled:
-                raise _not_supported(
-                    "chroma-subsampled YCbCr Modular frames", 7)
 
     def _keyframe_index(self, keyframe_idx: int) -> int:
         """Codestream index of keyframe `keyframe_idx`."""
@@ -1003,7 +971,6 @@ class JxlImage:
             return cached
         target = self._keyframe_index(keyframe_idx)
         cone, seeds = self._dependency_cone(target)
-        self._check_envelope(cone)
         frames = self._frames
         kf_indices = self._keyframe_global_indices()
         # the last cone frame that reads each slot, and each LF slot (LF
@@ -1172,7 +1139,6 @@ class JxlImage:
                 frame = self._frames[i]
                 if not frame.is_complete:
                     break
-                self._check_envelope([i])
                 # a frame rendered while it loaded resumes from its cache
                 # there: only the sections not decoded yet decode
                 kf = ctx.add_frame(frame)
@@ -1194,7 +1160,6 @@ class JxlImage:
 
             i = self._progressive_fed
             frame = self._frames[i]
-            self._check_envelope([i])
             cache = getattr(frame, "_progressive_cache", None)
             if cache is None:
                 cache = frame._progressive_cache = ProgressiveCache()

@@ -1,22 +1,24 @@
 """Command-line interface of the port: decode, info, progressive,
-slow-motion and dump-jbrd.
+slow-motion, dump-jbrd and generate-fixture.
 
 The torch counterpart of jxl_oxide_tpu/cli.py (jxl-oxide-cli commands.rs,
 decode.rs, info.rs): `decode` renders keyframes to PNG (APNG for an
 animation) or NPY with --num-reps timing (geomean + range, MP/s); `info`
 dumps header metadata and the frame list; `progressive` and
 `slow-motion` render the loading states of growing byte prefixes;
-`dump-jbrd` reconstructs the original JPEG.
+`dump-jbrd` reconstructs the original JPEG; `generate-fixture` writes a
+seeded test stream through the port's copies of the in-repo encoders
+(encoders/), on the host, the bytes of the JAX CLI's for the same
+arguments.
 
     python -m jxl_oxide_tpu_torch decode x.jxl -o x.png
 
-Every subcommand takes --device: CUDA by default, raising without it;
+Every decoding subcommand takes --device: CUDA by default, raising without it;
 `--device cpu` runs the plain torch versions. A timed decode waits for
 the device before it reads the clock. `decode --num-devices N` shards the
 decode over a mesh of N shards (parallel/ decode_mesh): CUDA cards 0..N-1
 (it raises when there are fewer), or N shards on the CPU under `--device
-cpu`. `generate-fixture` is not ported: it runs the in-repo encoders,
-which import the JAX package.
+cpu`.
 """
 
 from __future__ import annotations
@@ -92,6 +94,14 @@ def _build_parser():
                         help="reconstruct the original JPEG")
     dj.add_argument("input")
     dj.add_argument("-o", "--output", required=True)
+
+    gf = sub.add_parser("generate-fixture",
+                        help="emit a spec-valid test JXL bitstream")
+    gf.add_argument("-o", "--output", required=True)
+    gf.add_argument("--kind", choices=["modular", "vardct"], default="modular")
+    gf.add_argument("--size", default="64x64", help="WIDTHxHEIGHT")
+    gf.add_argument("--seed", type=int, default=0)
+    gf.add_argument("--grayscale", action="store_true")
     return p
 
 
@@ -383,12 +393,38 @@ def cmd_dump_jbrd(args) -> int:
     return 0
 
 
+def cmd_generate_fixture(args) -> int:
+    """Devtool: a seeded test stream from the port's encoders (encoders/,
+    numpy only, on the host), jxl_oxide_tpu/cli.py cmd_generate_fixture
+    with the same arguments and the same bytes: random float RGB through
+    encode_jxl_vardct, or random 8-bit planes (one with --grayscale,
+    which a VarDCT stream ignores) through encode_jxl_modular."""
+    w, h = (int(v) for v in args.size.lower().split("x"))
+    rng = np.random.default_rng(args.seed)
+    if args.kind == "vardct":
+        from .encoders.encoder_vardct import encode_jxl_vardct
+
+        data = encode_jxl_vardct(rng.random((h, w, 3)).astype(np.float32))
+    else:
+        from .encoders.encoder import encode_jxl_modular
+
+        nch = 1 if args.grayscale else 3
+        data = encode_jxl_modular(
+            [rng.integers(0, 256, (h, w), dtype=np.int64)
+             for _ in range(nch)], bit_depth=8)
+    with open(args.output, "wb") as f:
+        f.write(data)
+    print(f"wrote {args.output} ({len(data)} bytes)", file=sys.stderr)
+    return 0
+
+
 _COMMANDS = {
     "decode": cmd_decode,
     "info": cmd_info,
     "progressive": cmd_progressive,
     "slow-motion": cmd_slow_motion,
     "dump-jbrd": cmd_dump_jbrd,
+    "generate-fixture": cmd_generate_fixture,
 }
 
 

@@ -8,8 +8,10 @@ staged path's planes take every step here.
 
 Modular: the original channels of the frame's ModularImage -> floats
 (integer samples, lossless XYB, or float samples, converted where the
-samples are: on the card after the device tail) -> gaborish -> EPF at
-the frame's constant sigma. A greyscale frame has one
+samples are: on the card after the device tail) -> chroma upsample of a
+chroma-subsampled YCbCr frame (`upsample_chroma`, each channel converted
+at its own size) -> crop -> gaborish -> EPF at the frame's constant
+sigma, on full-resolution planes. A greyscale frame has one
 colour plane: the filters run on it cloned to three planes, as the JAX
 package runs them, and plane 0 is kept (the EPF's distance sums the
 three channels in order, so the clone keeps it bit for bit).
@@ -62,7 +64,7 @@ __all__ = ["FrameRender", "HostStage", "ModularHostStage",
            "device_stage", "extra_channel_planes",
            "host_stage", "partial_host_stage", "render_frame",
            "render_modular_tail", "render_vardct_tail",
-           "upsample_ec_to_color"]
+           "upsample_chroma", "upsample_ec_to_color"]
 
 
 @dataclass
@@ -208,6 +210,14 @@ def render_modular_tail(frame, chans: list, device) -> tuple[list, list]:
         m_x, m_y, m_b = (m / 128.0 for m in frame.lf_global.lf_dequant)
         color = [(x * m_x).to(torch.float32), (y * m_y).to(torch.float32),
                  (b * m_b).to(torch.float32)]
+    elif len({tuple(c.shape) for c in color_chans}) > 1:
+        # chroma-subsampled YCbCr: each channel at its own size, then
+        # upsampled to the frame's (render/render.py:151-152, 176-192 of
+        # the JAX package), before the filters
+        color = upsample_chroma(header, [
+            samples_to_float(_upload([c], device)[0], bit_depth)
+            for c in color_chans])
+        color = [p[:h, :w] for p in color]
     else:
         color = list(samples_to_float(_upload(color_chans, device),
                                       bit_depth).unbind(0))
@@ -250,6 +260,31 @@ def _upsample2x_triangle(plane: torch.Tensor, axis: int,
     return torch.movedim(out, 0, axis).narrow(axis, 0, size)
 
 
+def upsample_chroma(header, color: list) -> list:
+    """YCbCr chroma upsampling of a frame's three colour planes
+    (image.rs upsample_jpeg; jxl_oxide_tpu/render/render.py:176-192):
+    each subsampled plane 2x horizontally, then 2x vertically, cut to the
+    frame's sample size. Planes already at that size (a fused program
+    upsampled them) and frames that are not YCbCr pass as they are."""
+    if not header.do_ycbcr:
+        return color
+    h, w = header.sample_height(), header.sample_width()
+    ups = header.jpeg_upsampling
+    hscale = any(v in (1, 2) for v in ups)
+    vscale = any(v in (1, 3) for v in ups)
+    out = []
+    for i, p in enumerate(color):
+        # channel i is stored h-subsampled iff ups[i] in (0, 3) and any
+        # channel sets hscale; v-subsampled iff ups[i] in (0, 2)
+        # (param.rs from_jpeg_upsampling)
+        if hscale and ups[i] not in (1, 2) and p.shape[1] < w:
+            p = _upsample2x_triangle(p, 1, w)
+        if vscale and ups[i] not in (1, 3) and p.shape[0] < h:
+            p = _upsample2x_triangle(p, 0, h)
+        out.append(p)
+    return out
+
+
 @traced("Render frame")
 def render_vardct_tail(state, planes: list) -> list:
     """Three [h, w] float32 planes at the frame's sample size from the
@@ -257,27 +292,9 @@ def render_vardct_tail(state, planes: list) -> list:
     frame), on the planes' device."""
     header = state.header
     h, w = header.sample_height(), header.sample_width()
-    color = list(planes)
-
-    # YCbCr chroma upsampling (image.rs upsample_jpeg); the fused
-    # subsampled program has upsampled already, so the shapes skip it
-    if header.do_ycbcr:
-        ups = header.jpeg_upsampling
-        hscale = any(v in (1, 2) for v in ups)
-        vscale = any(v in (1, 3) for v in ups)
-        for i in range(3):
-            # channel i is stored h-subsampled iff ups[i] in (0, 3) and any
-            # channel sets hscale; v-subsampled iff ups[i] in (0, 2)
-            # (param.rs from_jpeg_upsampling)
-            hs = hscale and ups[i] not in (1, 2)
-            vs = vscale and ups[i] not in (1, 3)
-            p = color[i]
-            if hs and p.shape[1] < w:
-                p = _upsample2x_triangle(p, 1, w)
-            if vs and p.shape[0] < h:
-                p = _upsample2x_triangle(p, 0, h)
-            color[i] = p
-
+    # the fused subsampled program has upsampled already, so the shapes
+    # skip it
+    color = upsample_chroma(header, list(planes))
     color = [p if tuple(p.shape) == (h, w) else p[:h, :w] for p in color]
 
     rf = header.restoration_filter
@@ -328,8 +345,8 @@ def coefficient_host_stage(frame) -> HostStage:
     vardct.py `decode_vardct_frame(frame, keep_coeffs=True)`, without its
     device pipeline): every section decodes into a state whose quantized
     coefficient and LF-quant planes ([x, y, b]) are its own, never taken
-    from or given back to the plane pool, and stay; no device stage runs,
-    and no envelope is checked. A render before or after is unaffected:
+    from or given back to the plane pool, and stay; no device stage runs.
+    A render before or after is unaffected:
     each host stage parses the frame's LfGlobal afresh."""
     if frame.header.encoding != Encoding.VARDCT:
         raise ValueError("not a VarDCT frame")

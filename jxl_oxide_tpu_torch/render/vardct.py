@@ -8,8 +8,9 @@ and then the device stage does everything numeric: LF
 dequant+CfL+smoothing, HF dequant, HF CfL, the dense varblock inverse
 transforms, gaborish and the EPF (ops/vardct_pipeline.py).
 
-This is jxl_oxide_tpu/render/vardct.py on one device, cut to the port's
-envelope. `run_device_pipeline` takes one of three paths, as the JAX
+This is jxl_oxide_tpu/render/vardct.py on one device. A 4:4:4 YCbCr
+frame takes the 4:4:4 paths as an RGB frame does (its BT.601 leg runs at
+compositing or at the end, not here). `run_device_pipeline` takes one of three paths, as the JAX
 package does:
   - the fused 4:4:4 program;
   - the fused subsampled program (chroma upsample and filters included);

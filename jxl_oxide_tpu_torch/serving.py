@@ -106,10 +106,10 @@ def _host_stage_fast(img: JxlImage, frame: int):
     image's alpha channel or None; None when the stream takes the
     per-image path. The envelope: a stream of one frame, keyframe 0 asked
     for (jxl_oxide_tpu/serving.py:127-129: a multi-frame stream
-    composites, and goes per image), one VarDCT frame inside the port's
-    envelope (api.py `_check_envelope`: 4:4:4 or chroma-subsampled)
-    whose only extra channel, if any, is one integer alpha at full
-    resolution (the JAX package's `ec_ok`), with no upsampling or EC
+    composites, and goes per image), one VarDCT frame (4:4:4 in XYB, RGB
+    or YCbCr, or chroma-subsampled YCbCr) whose only extra channel, if
+    any, is one integer alpha at full resolution (the JAX package's
+    `ec_ok`), with no upsampling or EC
     upsampling, no LF frame, no splines and no noise, in XYB or an enum
     RGB encoding with no ICC leg (no embedded profile, no requested one:
     jxl_oxide_tpu/serving.py:127-142) and no tone map
@@ -120,15 +120,15 @@ def _host_stage_fast(img: JxlImage, frame: int):
     :146-161) and orientation 1: after the fused program the image
     pipeline is then exactly ([YCbCr -> RGB] -> colour transform ->
     interleave -> quantize) with the alpha passed through, all
-    pointwise, so it applies to a whole stack at once. Streams outside
-    the port's envelope raise JxlNotSupportedError here (the caller
-    routes them to the per-image path, which raises it again)."""
+    pointwise, so it applies to a whole stack at once. A colour
+    transform the port cannot build raises JxlNotSupportedError here (the
+    caller routes the stream to the per-image path, which raises it
+    again)."""
     from .headers.frame import Encoding
     from .headers.image import ColourSpace, ExtraChannelType
 
     if frame != 0 or img.num_keyframes != 1 or img.num_frames != 1:
         return None
-    img._check_envelope([0])
     meta = img.image_header.metadata
     # the stacked program passes one full-resolution integer alpha
     # through; any other extra channel goes per image
@@ -261,7 +261,7 @@ def decode_batch_stacked(streams: Sequence[bytes], *, frame: int = 0,
         img = JxlImage.from_bytes(streams[i], **builder_kwargs)
         try:
             fast = _host_stage_fast(img, frame)
-        except JxlNotSupportedError:  # out of the envelope: per image
+        except JxlNotSupportedError:  # no colour transform: per image
             fast = None
         if fast is None:
             return i, img, None

@@ -3,8 +3,8 @@ and the keyframe machinery of api.py) against the JAX package, on the
 CPU: animation chains, every frame blend mode with and without alpha,
 XYB frames converted before blending (ct_done), filtered animations,
 cropped frames, keyframe order and the keyframe cache, dependency cones,
-the decode device in the frame-render workers, and the envelope of a
-cone.
+the decode device in the frame-render workers, and a cone of
+chroma-subsampled YCbCr frames.
 
 Tolerances: unfiltered Modular frames exactly, in u8 and in the float32
 image; filtered frames within 1 LSB in u8 and 2e-5 in float32; alpha
@@ -24,7 +24,6 @@ from jxl_oxide_tpu_torch import JxlImage
 from jxl_oxide_tpu_torch import api as torch_api
 from jxl_oxide_tpu_torch.render import context as torch_context
 from jxl_oxide_tpu_torch.utils import options as opts
-from jxl_oxide_tpu_torch.utils.errors import JxlNotSupportedError
 
 
 def replace_frames(size: int, seed: int = 7):
@@ -326,16 +325,23 @@ def test_out_of_envelope_cones_raise(make, item):
 
 
 def test_every_frame_of_the_cone_is_checked():
-    """The envelope reads each frame of the cone, not only the target's
-    header: a chroma-subsampled YCbCr Modular frame (set by hand) before
-    a Blend keyframe raises."""
-    data = blend_stream(True, False, frames=3)
-    img = JxlImage.from_bytes(data, device="cpu")
-    img._frames[0].header.do_ycbcr = True
-    img._frames[0].header.jpeg_upsampling = (0, 1, 0)
-    with pytest.raises(JxlNotSupportedError, match="item 7"):
-        img.render_frame(2)
-    img._check_envelope([1, 2])
+    """Every frame of a cone decodes whatever its layout: three
+    chroma-subsampled YCbCr Modular frames (4:2:0, tools/encoder.py
+    without its asserts), each after the first blended over slot 1, so
+    every frame takes the BT.601 leg before blending
+    (`_convert_color_for_record`); every keyframe bit for bit the JAX
+    package's. The envelope that checked each frame of the cone is gone:
+    no layout is refused."""
+    from make_torch_port_fixtures import smooth_u8, unchecked_modular_encoder
+
+    frames = [[p[::1 << s, ::1 << s] for p, s in
+               zip(smooth_u8(24, 24, 510 + k), (1, 0, 1))] for k in range(3)]
+    data = unchecked_modular_encoder().encode_jxl_modular(
+        frames[0], bit_depth=8, do_ycbcr=True, jpeg_upsampling=(0, 1, 0),
+        image_size=(24, 24), animation_frames=frames, animation_blend=True)
+    ours = tp.assert_keyframes_match(data, exact=True)
+    assert all(f.header.do_ycbcr for f in ours._frames)
+    assert not hasattr(ours, "_check_envelope")
 
 
 def test_single_section_vardct_frame_renders_twice():

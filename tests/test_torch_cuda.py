@@ -818,3 +818,54 @@ def test_graft_entry_torch_on_cuda(cuda):
     fn, args = g.entry()
     assert tuple(fn(*args).shape) == (3, 1024, 1024)
     g.dryrun_multichip(2, devices=["cuda:0"] * 2)
+
+
+# (fixture, K1 launches, K9 launches) of one decode of the two YCbCr
+# layouts of ROADMAP item 7 on the card
+YCBCR = (("ycbcr444_1024", 2, 0), ("ycbcr444_256", 2, 0),
+         ("modular_420_1024", 2, 1))
+
+
+@pytest.mark.parametrize("name,k1,k9", YCBCR)
+def test_ycbcr_fixture_decodes_on_cuda(cuda, name, k1, k9):
+    """4:4:4 YCbCr VarDCT and 4:2:0 YCbCr Modular on the card: within 1
+    LSB of the reference, K1 once a pass, K9 on the Modular frame's Cb
+    squeeze; over 2 shards of cuda:0 bit for bit the single-device
+    decode."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
+    from jxl_oxide_tpu_torch.ops.cuda.squeeze import inv_squeeze_cuda
+    from jxl_oxide_tpu_torch.parallel import decode_mesh
+
+    data, ref = tp.fixture(name)
+    before = epf_step_cuda.launches, inv_squeeze_cuda.launches
+    single = JxlImage.from_bytes(data).render_frame(0)
+    assert epf_step_cuda.launches - before[0] == k1
+    assert inv_squeeze_cuda.launches - before[1] == k9
+    u8 = single.to_u8()
+    assert tp.max_lsb(u8, ref) <= 1
+    got = JxlImage.from_bytes(
+        data, mesh=decode_mesh(2, devices=["cuda:0"] * 2)).render_frame(0)
+    assert torch.equal(torch.stack(got.planes), torch.stack(single.planes))
+    assert np.array_equal(got.to_u8(), u8)
+
+
+def test_generate_fixture_on_the_host(tmp_path):
+    """The port's generate-fixture where there is no JAX: the SHA-256 of
+    the JAX CLI's output for each committed form (generate_fixture.json).
+    Host work: it needs no card, and runs here with the card's tests."""
+    import hashlib
+    import json
+    import os
+
+    from jxl_oxide_tpu_torch import cli
+
+    with open(os.path.join(tp.TESTDATA, "generate_fixture.json")) as f:
+        forms = json.load(f)["forms"]
+    for k, form in enumerate(forms):
+        out = tmp_path / f"g{k}.jxl"
+        assert cli.main(["generate-fixture", "-o", str(out),
+                         *form["args"]]) == 0
+        assert hashlib.sha256(out.read_bytes()).hexdigest() == form["sha256"]

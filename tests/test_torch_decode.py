@@ -1,8 +1,9 @@
 """End to end through the port's entry point,
 JxlImage.from_bytes(data, device="cpu").render_frame(0).to_u8(), against
 jxl_oxide_tpu: within 1 LSB on the parity streams and on the committed
-fixtures. Streams outside the port's envelope raise
-JxlNotSupportedError, and with no device= the port wants CUDA. The
+fixtures. Every frame layout decodes (the two YCbCr layouts of ROADMAP
+item 7 too: tests/test_torch_ycbcr.py holds them on every path), and
+with no device= the port wants CUDA. The
 chroma-subsampled and staged paths have their own files
 (test_torch_subsampled.py, test_torch_staged.py), as have alpha,
 orientation and serving (test_torch_alpha.py, test_torch_orientation.py,
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 import torch_parity as tp
-from jxl_oxide_tpu_torch import JxlImage, JxlNotSupportedError
+from jxl_oxide_tpu_torch import JxlImage
 from jxl_oxide_tpu_torch.device import resolve_device
 from torch_parity import STREAMS
 
@@ -95,8 +96,8 @@ def test_outside_the_envelope_raises(make, item):
     a dim_shift (item 9) decode since the port's seventh slice, within 1
     LSB of the JAX package (the alpha exactly); CMYK and a spot colour
     beside an alpha (item 17) since its ninth, bit for bit, every extra
-    channel too. The two YCbCr layouts of item 7 still raise
-    (test_the_item_7_layouts_raise)."""
+    channel too; the two YCbCr layouts of item 7 since its twelfth
+    (test_the_item_7_layouts_decode)."""
     data = make()
     if item == "item 9":
         tp.assert_keyframes_match(data, exact=False)
@@ -110,18 +111,25 @@ def test_outside_the_envelope_raises(make, item):
 
 @pytest.mark.parametrize("field,value", [("do_ycbcr", True),
                                          ("jpeg_upsampling", (0, 1, 0))])
-def test_the_item_7_layouts_raise(field, value):
-    """4:4:4 YCbCr VarDCT and chroma-subsampled YCbCr Modular (headers set
-    by hand: no in-repo encoder writes them) raise naming item 7."""
+def test_the_item_7_layouts_decode(field, value):
+    """The two layouts the port refused until its twelfth slice decode as
+    the JAX package's: a 4:4:4 YCbCr VarDCT frame (do_ycbcr with no
+    subsampling) within 1 LSB, and a chroma-subsampled YCbCr Modular frame
+    exactly. Real streams: the single-group VarDCT encoder with
+    jpeg_upsampling (0, 0, 0), tools/encoder.py without its asserts."""
     if field == "do_ycbcr":
-        img = JxlImage.from_bytes(STREAMS["dct8"](), device="cpu")
-        img._frames[0].header.do_ycbcr = True
+        data = tp.ycbcr444_stream(64, 64, 5, 0.1, gabor=True, epf_iters=2)
     else:
-        img = JxlImage.from_bytes(_cmyk_modular(), device="cpu")
-        img._frames[0].header.do_ycbcr = True
-        img._frames[0].header.jpeg_upsampling = value
-    with pytest.raises(JxlNotSupportedError, match="ROADMAP .*item 7"):
-        img.render_frame(0)
+        data, _ = tp.modular_ycbcr_stream(64, 64, value, 6)
+    header = JxlImage.from_bytes(data, device="cpu")._frames[0].header
+    assert header.do_ycbcr is True
+    assert tuple(header.jpeg_upsampling) == (
+        (0, 0, 0) if field == "do_ycbcr" else value)
+    got = tp.torch_u8(data)
+    if field == "do_ycbcr":
+        assert tp.max_lsb(got, tp.jax_u8(data)) <= 1
+    else:
+        np.testing.assert_array_equal(got, tp.jax_u8(data))
 
 
 def test_default_device_is_cuda():

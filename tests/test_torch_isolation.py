@@ -1,6 +1,6 @@
-"""The port stands alone: jxl_oxide_tpu_torch and chip_smoke.py import
-neither JAX nor the JAX package (jxl_oxide_tpu), which the machine with
-the card does not have."""
+"""The port stands alone: jxl_oxide_tpu_torch (its encoders/ too) and
+chip_smoke.py import neither JAX nor the JAX package (jxl_oxide_tpu),
+which the machine with the card does not have."""
 
 import ast
 import glob
@@ -68,4 +68,37 @@ def test_decode_loads_no_jax_module():
                          timeout=300, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["shape"] == [512, 512, 3]
+    assert res["modules"] == []
+
+
+def test_encoders_load_no_jax_module():
+    """The port's encoders (encoders/) in a fresh interpreter: an XYB
+    VarDCT stream, a squeezed Modular one and the CLI's generate-fixture
+    leave no jax or jxl_oxide_tpu module in sys.modules."""
+    script = (
+        "import json, sys, tempfile, os\n"
+        f"sys.path.insert(0, {tp.REPO!r})\n"
+        "import numpy as np\n"
+        "from jxl_oxide_tpu_torch import cli\n"
+        "from jxl_oxide_tpu_torch.encoders.encoder import "
+        "encode_jxl_modular\n"
+        "from jxl_oxide_tpu_torch.encoders.encoder_vardct import "
+        "encode_jxl_vardct\n"
+        "rng = np.random.default_rng(0)\n"
+        "a = encode_jxl_vardct(rng.random((32, 40, 3)).astype(np.float32), "
+        "xyb=True, gabor=True, epf_iters=2)\n"
+        "b = encode_jxl_modular([rng.integers(0, 256, (32, 40)) for _ in "
+        "range(3)], bit_depth=8, squeeze=True, rct=True)\n"
+        "out = os.path.join(tempfile.mkdtemp(), 'g.jxl')\n"
+        "rc = cli.main(['generate-fixture', '-o', out, '--kind', 'vardct'])\n"
+        "print(json.dumps({'rc': rc, 'sizes': [len(a), len(b)], 'modules': "
+        "sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})}}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", script], cwd=tp.REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["rc"] == 0 and min(res["sizes"]) > 0
     assert res["modules"] == []

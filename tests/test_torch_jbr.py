@@ -283,21 +283,36 @@ def test_coefficient_planes_equal_the_jax_keep_coeffs_decode(container):
 
 def test_a_4_4_4_ycbcr_frame_reconstructs_though_it_does_not_render(
         container):
-    """A jbrd stream from a 4:4:4 colour JPEG is ROADMAP item 7's 4:4:4
-    YCbCr VarDCT layout, which the render refuses; the reconstruction
-    checks no envelope. The frame header is set to do_ycbcr in both
-    packages (no in-repo encoder writes it)."""
+    """A jbrd stream from a 4:4:4 colour JPEG carries ROADMAP item 7's
+    4:4:4 YCbCr VarDCT layout, which the render refused until the port's
+    twelfth slice (the name is kept): the committed container with its
+    codestream spliced into a genuine do_ycbcr frame
+    (tools/make_torch_port_fixtures.py `with_ycbcr_444`) reconstructs the
+    JAX package's bytes and renders within 1 LSB of the JAX package's
+    render, before and after the reconstruction."""
     from jxl_oxide_tpu import JxlImage as JaxImage
-    from jxl_oxide_tpu_torch.utils.errors import JxlNotSupportedError
+    from make_torch_port_fixtures import with_ycbcr_444
 
     data, _ = container
-    jimg = JaxImage.from_bytes(data)
-    jimg._frames[0].header.do_ycbcr = True
-    img = JxlImage.from_bytes(data, device="cpu")
-    img._frames[0].header.do_ycbcr = True
-    with pytest.raises(JxlNotSupportedError, match="item 7"):
-        img.render_frame(0)
-    assert img.reconstruct_jpeg() == jimg.reconstruct_jpeg()
+    boxes, pos = [], 12
+    while pos < len(data):
+        size = int.from_bytes(data[pos:pos + 4], "big")
+        boxes.append((data[pos + 4:pos + 8], data[pos + 8:pos + size]))
+        pos += size
+    spliced = data[:12] + b"".join(
+        (8 + len(c)).to_bytes(4, "big") + ty + c for ty, c in (
+            (ty, with_ycbcr_444(c) if ty == b"jxlc" else c)
+            for ty, c in boxes))
+    img = JxlImage.from_bytes(spliced, device="cpu")
+    header = img._frames[0].header
+    assert header.do_ycbcr and tuple(header.jpeg_upsampling) == (0, 0, 0)
+    before = img.render_frame(0).to_u8()
+    want = JaxImage.from_bytes(spliced).render_frame(0).to_u8()
+    assert tp.max_lsb(before, want) <= 1
+    assert (img.reconstruct_jpeg()
+            == JaxImage.from_bytes(spliced).reconstruct_jpeg())
+    img._keyframe_cache.clear()
+    np.testing.assert_array_equal(img.render_frame(0).to_u8(), before)
 
 
 def _container(codestream: bytes, jbrd: bytes | None = None) -> bytes:

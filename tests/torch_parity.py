@@ -51,6 +51,10 @@ PROGRESSIVE_FIXTURES = (("flagship_1024", 2, 0), ("passes3_1024", 2, 0),
 # launches, K9 launches of one render_frame on the card, keyframes);
 # ec_mix_1024's squeeze runs on the device tail, with an f16 alpha in it
 EC_FIXTURES = (("ec_mix_1024", 2, 1, 1), ("ec_blend_premul_512", 6, 0, 3))
+# the two YCbCr layouts of ROADMAP item 7: 4:4:4 YCbCr VarDCT with LF
+# smoothing over 16 groups and without it in one, lossless 4:2:0 YCbCr
+# Modular whose Y opens the device tail's gate (K9 on the Cb squeeze)
+YCBCR_FIXTURES = ("ycbcr444_1024", "ycbcr444_256", "modular_420_1024")
 # the fixtures whose region renders are committed (<name>_roi.npz)
 ROI_FIXTURES = ("flagship_1024", "ycbcr420_1024", "orient6_512x384",
                 "modular_1024")
@@ -119,6 +123,30 @@ def ycbcr_stream(h: int, w: int, ups, seed: int = 0, density: float = 0.15,
     from make_torch_port_fixtures import ycbcr_stream as make
 
     return make(h, w, ups, seed, density, **kw)
+
+
+def ycbcr444_stream(h: int, w: int, seed: int = 0, density: float = 0.15,
+                    **kw) -> bytes:
+    """A 4:4:4 YCbCr DCT8 stream. Up to 256^2 the single-group encoder
+    writes it (ycbcr_stream with jpeg_upsampling (0, 0, 0); adaptive LF
+    smoothing skipped); larger frames, and any that pass
+    skip_lf_smoothing, come from the multi-group encoder spliced into a
+    YCbCr frame (tools/make_torch_port_fixtures.py `ycbcr444_tiled`)."""
+    from make_torch_port_fixtures import ycbcr444_tiled
+
+    if h <= 256 and w <= 256 and "skip_lf_smoothing" not in kw:
+        return ycbcr_stream(h, w, (0, 0, 0), seed, density, **kw)
+    return ycbcr444_tiled(h, w, seed, density, **kw)
+
+
+def modular_ycbcr_stream(h: int, w: int, ups, seed: int = 0,
+                         **kw) -> tuple[bytes, list]:
+    """A lossless chroma-subsampled YCbCr Modular stream of seeded smooth
+    planes and the planes it codes, [Cb, Y, Cr] at their own sizes
+    (tools/make_torch_port_fixtures.py `modular_ycbcr`)."""
+    from make_torch_port_fixtures import modular_ycbcr
+
+    return modular_ycbcr(h, w, ups, seed, **kw)
 
 
 def overflow_stream(h: int = 256, w: int = 262, seed: int = 7,

@@ -29,6 +29,10 @@ testdata/:
                besides "u8", "extra": every extra channel of
                image_all_channels() (float32, [.., H, W, E]; per keyframe
                for the animation)
+  generate_fixture.json
+               the SHA-256 of the JAX CLI's generate-fixture output for
+               each of GENERATE_FIXTURE; written with the name
+               "generate_fixture"
   <name>_roi.npz
                for each of ROI, jxl_oxide_tpu's render_frame_cropped(0,
                region).to_u8() for each of its regions (`roi_regions`):
@@ -130,6 +134,97 @@ def ycbcr_stream(h, w, ups, seed, density, **kw):
                                      **kw)
     return encode_jxl_vardct_tiled(h, w, sel, mul, coeff, lf,
                                    jpeg_upsampling=ups, **kw)
+
+
+def with_ycbcr_444(stream: bytes) -> bytes:
+    """`stream`, a bare codestream of one non-XYB VarDCT frame that is not
+    YCbCr, spliced into a 4:4:4 YCbCr frame: the frame header's do_ycbcr
+    bit (after the flags U64, tools/encoder_vardct.py:1090-1091) set and
+    three 2-bit jpeg_upsampling fields of 0 inserted after it. The frame
+    header and the TOC are parsed with the port's own parser; the bits
+    before the TOC's first zero padding move by 6, the padding is
+    written anew, and the TOC's sizes and every section keep their bytes
+    (they start on a byte boundary). No in-repo encoder writes a 4:4:4
+    YCbCr frame of several groups: encode_jxl_vardct_tiled sets do_ycbcr
+    only for subsampled layouts (encoder_vardct.py:1066)."""
+    from jxl_oxide_tpu_torch import JxlImage
+    from jxl_oxide_tpu_torch.headers.frame import Encoding, FrameHeader, Toc
+    from jxl_oxide_tpu_torch.io.bitstream import Bitstream
+
+    img = JxlImage.from_bytes(stream, device="cpu")
+    assert img.num_frames == 1 and not img.image_header.metadata.xyb_encoded
+    fr = img._frames[0]
+    assert fr.header.encoding == Encoding.VARDCT and not fr.header.do_ycbcr
+    start = fr.start_byte * 8
+    bs = Bitstream(stream, start)
+    bs.read_bool()       # all_default
+    bs.read_bits(2)      # frame_type
+    bs.read_bits(1)      # encoding
+    bs.read_u64()        # flags
+    at = bs.pos          # do_ycbcr
+    bs = Bitstream(stream, start)
+    FrameHeader.parse(bs, img.image_header)
+    end = bs.pos         # the TOC's permutation bit
+    toc = Toc.parse(Bitstream(stream, end), fr.header, fr.start_byte)
+    bits = [(stream[i >> 3] >> (i & 7)) & 1 for i in range(end + 1)]
+    assert bits[at] == 0 and bits[end] == 0, "do_ycbcr set or TOC permuted"
+    bits[at:at + 1] = [1] + [0] * 6
+    bits += [0] * (-len(bits) % 8)
+    head = bytes(sum(b << k for k, b in enumerate(bits[i:i + 8]))
+                 for i in range(0, len(bits), 8))
+    out = head + stream[-(-(end + 1) // 8):]
+    spliced = JxlImage.from_bytes(out, device="cpu")._frames[0]
+    assert spliced.header.do_ycbcr
+    assert tuple(spliced.header.jpeg_upsampling) == (0, 0, 0)
+    assert [e.size for e in spliced.toc.entries] == [
+        e.size for e in toc.entries]
+    return out
+
+
+def ycbcr444_tiled(h, w, seed, density, **kw):
+    """The 4:4:4 layout of ycbcr_stream above 256^2, where the
+    multi-group encoder (which takes skip_lf_smoothing) writes it as a
+    frame that is not YCbCr, spliced into a YCbCr one
+    (`with_ycbcr_444`)."""
+    assert h > 256 or w > 256, "ycbcr_stream's single-group encoder"
+    return with_ycbcr_444(ycbcr_stream(h, w, (0, 0, 0), seed, density,
+                                       **kw))
+
+
+def unchecked_modular_encoder(module=None):
+    """The Modular encoder `module` (default tools/encoder.py; the port's
+    copy jxl_oxide_tpu_torch/encoders/encoder.py too) compiled without
+    its asserts (optimize=1), the file itself unchanged: its
+    encode_jxl_modular refuses a chroma-subsampled YCbCr frame only by
+    the scope assert (tools/encoder.py:720-722) and the equal-shapes
+    assert (741), and writes one when they are stripped. A module of its
+    own, so the checked encoder stays as it is."""
+    import types
+
+    if module is None:
+        import encoder as module
+    mod = types.ModuleType(module.__name__ + "_unchecked")
+    mod.__file__, mod.__package__ = module.__file__, module.__package__
+    with open(module.__file__) as f:
+        exec(compile(f.read(), module.__file__, "exec", optimize=1),
+             mod.__dict__)
+    return mod
+
+
+def modular_ycbcr(h, w, ups, seed, **kw):
+    """A lossless chroma-subsampled YCbCr Modular stream: smooth_u8(h, w,
+    seed)'s planes as [Cb, Y, Cr] in stream order, each decimated by its
+    channel's shifts of `ups` (every other sample kept, as the frame's
+    ceil-sized channel holds), through `unchecked_modular_encoder`.
+    Returns (stream, the coded planes)."""
+    from jxl_oxide_tpu.models.vardct import jpeg_shifts
+
+    planes = [p[::1 << vs, ::1 << hs] for p, (hs, vs)
+              in zip(smooth_u8(h, w, seed), jpeg_shifts(ups))]
+    data = unchecked_modular_encoder().encode_jxl_modular(
+        planes, bit_depth=8, do_ycbcr=True, jpeg_upsampling=ups,
+        image_size=(h, w), **kw)
+    return data, planes
 
 
 def staged_1030():
@@ -471,7 +566,8 @@ def ec_blend_premul_512():
 # the fixtures whose references carry every extra channel
 EXTRA_CHANNELS = ("ec_mix_1024", "ec_blend_premul_512")
 # the streams whose region renders are committed (<name>_roi.npz)
-ROI = ("flagship_1024", "ycbcr420_1024", "orient6_512x384", "modular_1024")
+ROI = ("flagship_1024", "ycbcr420_1024", "orient6_512x384", "modular_1024",
+       "ycbcr444_1024", "modular_420_1024")
 
 
 def roi_regions(width: int, height: int) -> list:
@@ -742,6 +838,43 @@ def write_frontends() -> None:
     print(f"frontends.json: info of {list(info)}, delays {delays}")
 
 
+# the JAX CLI's generate-fixture forms whose output's SHA-256 is committed
+# (generate_fixture.json): chip_smoke.py runs the port's generate-fixture
+# on the card's host, which has no JAX, and holds its bytes to these
+GENERATE_FIXTURE = (
+    ["--kind", "modular", "--size", "64x64", "--seed", "0"],
+    ["--kind", "modular", "--grayscale", "--size", "256x192", "--seed", "5"],
+    ["--kind", "vardct", "--size", "256x192", "--seed", "5"],
+)
+
+
+def write_generate_fixture() -> None:
+    """generate_fixture.json: for each of GENERATE_FIXTURE, the arguments
+    and the SHA-256 and length of the file the JAX CLI writes."""
+    import contextlib
+    import hashlib
+    import io
+    import json
+    import tempfile
+
+    from jxl_oxide_tpu import cli
+
+    forms = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "g.jxl")
+        for args in GENERATE_FIXTURE:
+            with contextlib.redirect_stderr(io.StringIO()):
+                assert cli.main(["generate-fixture", "-o", out, *args]) == 0
+            with open(out, "rb") as f:
+                data = f.read()
+            forms.append({"args": list(args), "bytes": len(data),
+                          "sha256": hashlib.sha256(data).hexdigest()})
+    with open(os.path.join(OUT_DIR, "generate_fixture.json"), "w") as f:
+        json.dump({"forms": forms}, f, indent=1)
+        f.write("\n")
+    print(f"generate_fixture.json: {len(forms)} forms")
+
+
 def fixtures() -> dict:
     """name -> a function that makes the stream."""
     from encoder import encode_jxl_modular
@@ -861,6 +994,23 @@ def fixtures() -> dict:
         "wide_420_1024x256": lambda: ycbcr_stream(256, 1024, (0, 1, 0), 81,
                                                   0.2, gabor=True,
                                                   epf_iters=2),
+        # the two layouts of ROADMAP item 7. 4:4:4 YCbCr VarDCT with
+        # adaptive LF smoothing (its region renders whole), gaborish + 2
+        # EPF passes, 16 groups: the multi-group encoder spliced
+        "ycbcr444_1024": lambda: ycbcr444_tiled(
+            1024, 1024, 91, 0.2, gabor=True, epf_iters=2,
+            skip_lf_smoothing=False),
+        # one group, LF smoothing skipped (the single-group encoder's): a
+        # region takes the rect program
+        "ycbcr444_256": lambda: ycbcr_stream(256, 256, (0, 0, 0), 92, 0.2,
+                                             gabor=True, epf_iters=2),
+        # lossless 4:2:0 YCbCr Modular, one 1024^2 group: Y's 2^20 samples
+        # open the device tail's gate, and K9 runs on the squeeze of
+        # channel 0 (Cb, 512^2); gaborish + 2 EPF passes on the upsampled
+        # planes, LZ77 runs
+        "modular_420_1024": lambda: modular_ycbcr(
+            1024, 1024, (0, 1, 0), 90, squeeze=True, gabor=True,
+            epf_iters=2, group_size_shift=3, lz77_rle=True)[0],
         "alpha_shift_512": lambda: encode_jxl_modular(
             smooth_u8(512, 512, 54) + [smooth_alpha(128, 128, 55)],
             bit_depth=8, extra_alpha=True, alpha_dim_shift=2,
@@ -891,12 +1041,16 @@ def main(names) -> None:
     makers = fixtures()
     for name in names or [*makers, "flagship_1024_requests",
                           *(f"{n}_progressive" for n in PROGRESSIVE),
-                          *(f"{n}_roi" for n in ROI), "frontends"]:
+                          *(f"{n}_roi" for n in ROI), "frontends",
+                          "generate_fixture"]:
         if name == "flagship_1024_requests":
             write_requests()
             continue
         if name == "frontends":
             write_frontends()
+            continue
+        if name == "generate_fixture":
+            write_generate_fixture()
             continue
         if name.endswith("_progressive"):
             write_progressive(name[:-len("_progressive")])
