@@ -103,8 +103,10 @@ Phases, each fatal (non-zero exit, no "ok" line):
      field kernel, bit for bit against its plain version (ops/noise.py,
      numpy) on NOISE_SHAPES (one pixel, W % 16 != 0, partial groups at the
      right and bottom edges, one group, 2048^2, features_up2_1024's one
-     1024^2 group), timed on the card's clock warm and cold beside its
-     byte bound and its serial steps a lane; then each of
+     1024^2 group, partial 512^2 groups), timed on the card's clock warm
+     and cold beside its byte bound, its segment length, threads and jump
+     table, and held and timed at every segment length of NOISE_SEGS;
+     then each of
      FEATURE_FIXTURES (splines, noise and x2 upsampling; an LF frame on
      the fused path; a two-level XYB LF chain; an alpha at dim_shift 2)
      decoded within 1 LSB of its reference, alpha exactly, its K1 and K12
@@ -164,8 +166,8 @@ Phases, each fatal (non-zero exit, no "ok" line):
      package's reconstruction and reconstruct_jpeg's host time; `python
      -m jxl_oxide_tpu_torch info` in a subprocess; --num-devices one
      more than the cards raising a clear error; clear_program_caches()
-     lowering torch.cuda.memory_reserved(), then the flagship exact with
-     K1 2;
+     lowering torch.cuda.memory_reserved(), what still holds memory after
+     it named (`memory_holders`), then the flagship exact with K1 2;
  13. the sharded decode (`phase_mesh`): each of MESH_DECODES over a mesh
      of explicit shards on cuda:0, its K1, K9 and K12 launches and calls
      of the plain epf_step on a CUDA tensor counted (none allowed), equal
@@ -1535,16 +1537,23 @@ FEATURE_SPANS = ("Splines", "Noise", "Upsampling", "LF frame")
 # K12 against its plain version, bit for bit: (W, H, group_dim, timed):
 # one pixel, W % 16 != 0, partial groups at the right and bottom edges,
 # one group, 2048^2; timed at 1024^2 and 2048^2 in 256^2 groups (an
-# encoder's default) and at features_up2_1024's field, one 1024^2 group
+# encoder's default) and at features_up2_1024's field, one 1024^2 group;
+# 1000x777 in 512^2 groups: partial edge groups whose lane walks (31 x 265
+# x 3 batches at the corner) are no multiple of any segment length
 NOISE_SHAPES = ((1, 1, 128, False), (17, 5, 128, False),
                 (300, 260, 128, False), (513, 130, 256, False),
-                (256, 256, 256, False), (1024, 1024, 256, True),
-                (2048, 2048, 256, True), (1024, 1024, 1024, True))
+                (256, 256, 256, False), (1000, 777, 512, False),
+                (1024, 1024, 256, True), (2048, 2048, 256, True),
+                (1024, 1024, 1024, True))
+# the segment lengths K12 is held and timed at on the timed shapes, beside
+# its default (ops/cuda/noise.py `segment_steps`)
+NOISE_SEGS = (32, 64, 128, 256, 512, 1024, 2048)
 # 32-bit integer operations of one XorShift128+ step and its two floats:
 # the 64-bit add, three 64-bit shifts and three xors (two halves each),
 # and a shift and an or per float; counted against the fp32 rate outside
 # the tensor cores, as the squeeze's are (the data sheet gives no integer
-# rate)
+# rate). The jump's 128 steps a thread are the design's cost, not the
+# function's, and stay out of the bound.
 NOISE_OPS_PER_STEP = 20
 
 
@@ -1563,46 +1572,47 @@ def noise_bound_ms(w: int, h: int, gdim: int) -> tuple[float, str, int]:
             else "operations", steps)
 
 
-def noise_device_ms(w: int, h: int, gdim: int, seed0: int) -> tuple:
-    """K12's device ms per launch on the card's clock, warm (20 launches
-    back to back between two CUDA events) and cold (the L2 overwritten
-    before each of 5 launches, each between its own events)."""
+def noise_device_ms(w: int, h: int, gdim: int, seed0: int,
+                    seg: int | None = None, fn=None) -> tuple:
+    """K12's device ms per launch on the card's clock (or of `fn`, a
+    version bound by ops/cuda/noise.py `bind`), with segments of `seg`
+    batches (default: the wrapper's), replayed from CUDA graphs so that no
+    host work falls between launches (squeeze_measure.graph_ms): warm, 20
+    launches a graph, 5 replays back to back; cold, one launch a graph,
+    each of 5 replays after 256 MB written to the card."""
     import torch
 
     from jxl_oxide_tpu_torch.ops.cuda import noise as k12
     from jxl_oxide_tpu_torch.ops.cuda import squeeze_measure as sm
 
     out = torch.empty((3, h, w), dtype=torch.float32, device="cuda")
-    for _ in range(3):
-        k12.launch(out, gdim, seed0)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(20):
-        k12.launch(out, gdim, seed0)
-    end.record()
-    torch.cuda.synchronize()
-    warm = start.elapsed_time(end) / 20
-    flush = torch.empty(int(2 * sm.L2_BYTES) // 4, dtype=torch.float32,
-                        device="cuda")
-    cold = []
-    for _ in range(5):
-        flush.fill_(1.0)
-        start.record()
-        k12.launch(out, gdim, seed0)
-        end.record()
-        torch.cuda.synchronize()
-        cold.append(start.elapsed_time(end))
-    return warm, statistics.fmean(cold)
+    # the jump table is built and uploaded here, outside the captures
+    k12.launch(out, gdim, seed0, seg, fn)
+
+    def launches(n):
+        for _ in range(n):
+            k12.launch(out, gdim, seed0, seg, fn)
+
+    warm = sm.graph_ms(lambda: launches(20)) / 20
+    return warm, sm.graph_ms(lambda: launches(1), cold=True)
+
+
+def noise_differ(got, want) -> int:
+    """Samples of a K12 field (a CUDA tensor) whose bits differ from the
+    plain version's."""
+    return int((got.cpu().numpy().view(np.uint32)
+                != want.view(np.uint32)).sum())
 
 
 def phase_noise(device) -> dict:
     """K12 against its plain version (ops/noise.py, numpy on the host) on
     NOISE_SHAPES, bit for bit; the timed shapes timed warm and cold beside
-    their bound and their serial steps a lane. Returns the rows by shape."""
+    their bound, the segment length, the threads and the jump table's
+    bytes, and held and timed at every length of NOISE_SEGS. Returns the
+    rows by shape."""
     import torch
 
+    from jxl_oxide_tpu_torch.ops.cuda import noise as k12
     from jxl_oxide_tpu_torch.ops.cuda.noise import noise_field_cuda
     from jxl_oxide_tpu_torch.ops.noise import (
         noise_field_plain,
@@ -1618,10 +1628,12 @@ def phase_noise(device) -> dict:
         t0 = time.perf_counter()
         want = noise_field_plain(w, h, gdim, seed0)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        differ = int((got.cpu().numpy().view(np.uint32)
-                      != want.view(np.uint32)).sum())
+        differ = noise_differ(got, want)
+        seg = k12.segment_steps(w, h, gdim)
+        segments, threads = k12.launch_shape(w, h, gdim, seg)
         line = (f"noise field {w}x{h} in {gdim}^2 groups: {differ} samples "
-                "differ from the plain version")
+                f"differ from the plain version (segments of {seg}, "
+                f"{threads} threads)")
         if differ:
             log(line)
             raise AssertionError(f"K12 {w}x{h}/{gdim}: {differ} samples "
@@ -1630,18 +1642,34 @@ def phase_noise(device) -> dict:
             warm, cold = noise_device_ms(w, h, gdim, seed0)
             bound, by, steps = noise_bound_ms(w, h, gdim)
             lane = noise_steps(w, h, gdim)
+            sweep = {}
+            for s in NOISE_SEGS:
+                out = torch.empty((3, h, w), dtype=torch.float32,
+                                  device=device)
+                k12.launch(out, gdim, seed0, s)
+                if noise_differ(out, want):
+                    raise AssertionError(f"K12 {w}x{h}/{gdim}, segments of "
+                                         f"{s}: differs from plain")
+                sw, sc = noise_device_ms(w, h, gdim, seed0, s)
+                sweep[s] = {"ms": sw, "cold_ms": sc,
+                            "threads": k12.launch_shape(w, h, gdim, s)[1]}
             rows[(w, h, gdim)] = {
                 "ms": warm, "cold_ms": cold, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": by,
                 "cold_share_of_bound": bound / cold,
                 "steps_per_lane": lane, "steps": steps,
-                "ns_per_step": warm * 1e6 / lane,
+                "segment_steps": seg, "threads": threads,
+                "jump_table_bytes": segments * 16,
+                "segment_sweep": sweep,
             }
             line += (f"; device warm {warm:.4f} ms, cold {cold:.4f} ms, "
                      f"bound {bound:.4f} ms ({by}; {steps} steps in all), "
-                     f"cold share {bound / cold:.4f}; {lane} serial steps a "
-                     f"lane, {warm * 1e6 / lane:.2f} ns a step; plain "
-                     f"(numpy, host) {plain_ms:.1f} ms")
+                     f"cold share {bound / cold:.4f}; {lane} steps a lane "
+                     f"in {segments} segments, jump table {segments * 16} "
+                     f"B; plain (numpy, host) {plain_ms:.1f} ms; by segment "
+                     "length (bit for bit each), warm / cold ms: "
+                     + ", ".join(f"{s}: {r['ms']:.4f} / {r['cold_ms']:.4f}"
+                                 for s, r in sweep.items()))
         log(line)
     return rows
 
@@ -2107,6 +2135,99 @@ def counted_cli(argv) -> tuple:
     return rc, out, err, ms, read_counts(), eps, sqs
 
 
+def _key_of(mapping, obj):
+    for k, v in mapping.items():
+        if v is obj:
+            return k
+    return "?"
+
+
+def _referrer_chain(obj, depth: int, skip: set, modules: dict) -> str:
+    """Who holds `obj`: its first referrer (a module attribute, a
+    function's local, an object's attribute, a container) and, for a
+    container or an object, who holds that, up to 6 levels. Referrers
+    whose ids are in `skip` (the measurement's own) are passed over."""
+    import gc
+    import types
+
+    if depth > 5:
+        return "..."
+    frame = sys._getframe(1)
+    while frame is not None:
+        if frame.f_code.co_name not in ("_referrer_chain", "memory_holders"):
+            for k, v in frame.f_locals.items():
+                if v is obj:
+                    return (f"local {k} of {frame.f_code.co_name} "
+                            f"({os.path.basename(frame.f_code.co_filename)}"
+                            f":{frame.f_lineno})")
+        frame = frame.f_back
+    refs = gc.get_referrers(obj)
+    skip.add(id(refs))
+    for ref in refs:
+        if id(ref) in skip:
+            continue
+        if isinstance(ref, types.FrameType):
+            if ref.f_code.co_name in ("_referrer_chain", "memory_holders"):
+                continue
+            return (f"local {_key_of(ref.f_locals, obj)} of "
+                    f"{ref.f_code.co_name} "
+                    f"({os.path.basename(ref.f_code.co_filename)}:"
+                    f"{ref.f_lineno})")
+        if isinstance(ref, dict):
+            if id(ref) in modules:
+                return f"{modules[id(ref)]}.{_key_of(ref, obj)}"
+            return (f"[{_key_of(ref, obj)!r}] of "
+                    + _referrer_chain(ref, depth + 1, skip, modules))
+        if isinstance(ref, types.FunctionType):
+            return f"function {ref.__qualname__}"
+        if type(ref).__name__ in ("list_iterator", "tuple_iterator"):
+            continue
+        return (f"{type(ref).__qualname__} in "
+                + _referrer_chain(ref, depth + 1, skip, modules))
+    return "no Python referrer"
+
+
+def memory_holders(top: int = 12) -> dict:
+    """What holds the card's allocated memory: every CUDA tensor that
+    Python reaches (gc), by storage, the `top` largest each named by its
+    chain of referrers (`_referrer_chain`); and the caching allocator's
+    active blocks (torch.cuda.memory_snapshot) that none of them covers:
+    memory that C++ holds, such as cuBLAS's workspaces. Bytes."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    modules = {id(vars(m)): name for name, m in list(sys.modules.items())
+               if m is not None and hasattr(m, "__dict__")}
+    storages = {}
+    objects = gc.get_objects()
+    for obj in objects:
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                st = obj.untyped_storage()
+                storages.setdefault(st.data_ptr(), [st.nbytes(), obj])
+        except Exception:  # half-built objects; proxies that raise
+            continue
+    del objects, obj
+    largest = sorted(storages.values(), key=lambda v: -v[0])[:top]
+    skip = {id(storages), id(largest)} | {id(v) for v in storages.values()}
+    holders = []
+    for entry in largest:
+        holders.append((entry[0], tuple(entry[1].shape),
+                        _referrer_chain(entry[1], 0, skip, modules)))
+    python = sum(v[0] for v in storages.values())
+    addresses = set(storages)
+    storages.clear()
+    del largest, entry
+    outside = sorted((block["size"] for seg in torch.cuda.memory_snapshot()
+                      for block in seg["blocks"]
+                      if block["state"] == "active_allocated"
+                      and block["address"] not in addresses), reverse=True)
+    return {"allocated": torch.cuda.memory_allocated(), "python": python,
+            "holders": holders, "outside": outside}
+
+
 def phase_frontends(device, probe: dict) -> tuple[dict, dict]:
     """The front ends on the card (this slice's path), Pillow blocked:
     the CLI's decode of flagship_1024 with --num-reps 5 (K1 2 a rep, the
@@ -2122,8 +2243,9 @@ def phase_frontends(device, probe: dict) -> tuple[dict, dict]:
     legs only where libbrotlidec loads, which the run reports); `python
     -m jxl_oxide_tpu_torch info` in a subprocess; --num-devices exiting
     non-zero with the item-13 message; clear_program_caches() lowering
-    torch.cuda.memory_reserved(), then the flagship again exact with K1
-    2. Returns K1's and K9's rows of the CLI paths."""
+    torch.cuda.memory_reserved() and what still holds memory after it
+    (`memory_holders`), then the flagship again exact with K1 2. Returns
+    K1's and K9's rows of the CLI paths."""
     import subprocess
     import tempfile
 
@@ -2354,6 +2476,20 @@ def phase_frontends(device, probe: dict) -> tuple[dict, dict]:
         clear_ms = (time.perf_counter() - t0) * 1e3
         after = torch.cuda.memory_reserved()
         allocated_after = torch.cuda.memory_allocated()
+        # what still holds memory after the clear: Python's CUDA tensors by
+        # referrer, and blocks no Python tensor covers (the cuBLAS
+        # workspaces, 288 MiB here before the clear released them)
+        mem = memory_holders()
+        log(f"after clear_program_caches: {mem['allocated'] / 2**20:.1f} MiB "
+            f"allocated, {mem['python'] / 2**20:.1f} MiB in CUDA tensors "
+            f"that Python reaches, {sum(mem['outside']) / 2**20:.1f} MiB in "
+            f"{len(mem['outside'])} active blocks none of them covers "
+            f"(sizes {mem['outside'][:8]})")
+        for nbytes, shape, chain in mem["holders"]:
+            log(f"  {nbytes / 2**20:.2f} MiB {shape}: {chain}")
+        if mem["outside"]:
+            raise AssertionError("clear_program_caches left memory that no "
+                                 "Python tensor holds")
         data, ref = read_fixture("flagship_1024")
         reset_counts()
         u8 = JxlImage.from_bytes(data).render_frame(0).to_u8()

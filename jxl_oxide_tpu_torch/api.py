@@ -1180,16 +1180,19 @@ def clear_program_caches() -> None:
     clear_program_caches): the fused programs (render/vardct.py
     `VardctFrameState._fused_cache`) and decode_batch_stacked's stacked
     ones, the plane pool, the colour transforms, the device tables
-    (ops/varblock.py `device_const`) and the lru_cached host tables of
-    ops/dct.py, ops/upsample.py and ops/varblock.py; then, after a garbage
-    collection (device tensors held only by reference cycles, such as a
-    dropped image's, come free there), the CUDA caching allocator's free
-    blocks. A long-running process that decodes many streams of different
+    (ops/varblock.py `device_const`), K12's jump tables (ops/cuda/noise.py)
+    and the lru_cached host tables of ops/dct.py, ops/upsample.py and
+    ops/varblock.py; then, after a garbage collection (device tensors held
+    only by reference cycles, such as a dropped image's, come free there),
+    the cuBLAS workspaces of the port's matrix products (torch keeps one
+    per handle and stream, 32 MiB each on an H100, and the decode threads
+    make several) and the CUDA caching allocator's free blocks. A long-running process that decodes many streams of different
     geometries calls it now and then; a decode after it builds what it
     needs again and gives the same output."""
     import gc
 
     from .ops import dct, upsample, varblock
+    from .ops.cuda import noise
     from .render import vardct
     from .serving import decode_batch_stacked
 
@@ -1199,10 +1202,12 @@ def clear_program_caches() -> None:
         vardct._PLANE_POOL.clear()
     JxlImage._ct_cache.clear()
     varblock._CONST_CACHE.clear()
+    noise.clear_jump_tables()
     for fn in (dct.dct_basis_forward, dct.dct_basis_inverse,
                upsample._kernels_cached, varblock.scale_f_map,
                varblock.special_lowrank_factors):
         fn.cache_clear()
     gc.collect()
     if torch.cuda.is_initialized():
+        torch._C._cuda_clearCublasWorkspaces()
         torch.cuda.empty_cache()

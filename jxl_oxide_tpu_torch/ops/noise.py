@@ -8,14 +8,27 @@ the card; this module is what the CPU path and the tests run, and what
 chip_smoke.py holds K12 against. The state stays numpy uint64: torch's
 uint64 lacks shifts and xor on several backends, and int64 arithmetic
 shifts would sign-extend.
+
+It also builds K12's jump tables. The XorShift128+ step is a linear map
+T of the 128-bit state over GF(2) (only the output sum is nonlinear, and
+it never feeds back), so with chi its characteristic polynomial (degree
+128) the state n steps on is sum_i q_i T^i s for q = x^n mod chi
+(Cayley-Hamilton): 128 steps from s and an XOR of the states q selects.
+`characteristic_polynomial` finds chi from the recurrence itself
+(Berlekamp-Massey over one state bit); `jump_table` lists q for every
+segment start j * seg of a lane's walk.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
+
 import numpy as np
 
-__all__ = ["N_LANES", "noise_field_plain", "noise_groups", "noise_seed0",
-           "noise_steps"]
+__all__ = ["N_LANES", "characteristic_polynomial", "jump_table",
+           "noise_field_plain", "noise_groups", "noise_seed0", "noise_steps",
+           "xorshift_state_step"]
 
 N_LANES = 8
 _GOLDEN = np.uint64(0x9E3779B97F4A7C15)
@@ -90,3 +103,82 @@ def noise_field_plain(width: int, height: int, group_dim: int,
         f = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
         field_arr[:, y0:y0 + gh, x0:x0 + gw] = f[:, :, :gw]
     return field_arr
+
+
+# -- jump-ahead ----------------------------------------------------------------
+
+_MASK64 = (1 << 64) - 1
+
+
+def xorshift_state_step(s0: int, s1: int) -> tuple[int, int]:
+    """The state map of one XorShift128+ step on Python ints (the sum
+    s0 + s1 it outputs is left out: it never feeds back)."""
+    t1 = s0 ^ ((s0 << 23) & _MASK64)
+    return s1, t1 ^ s1 ^ (t1 >> 18) ^ (s1 >> 5)
+
+
+def _berlekamp_massey(bits: list) -> tuple[int, int]:
+    """The connection polynomial C (bit i the coefficient of x^i, C(0) = 1)
+    and length of the shortest LFSR over GF(2) that makes `bits`:
+    bits[n] = sum_{i=1..length} C_i bits[n - i]."""
+    c, b, length, m = 1, 1, 0, 1
+    past = 0  # bit i: bits[n - i]
+    for n, s in enumerate(bits):
+        past = (past << 1) | s
+        if (c & past).bit_count() & 1 == 0:
+            m += 1
+        elif 2 * length <= n:
+            c, b = c ^ (b << m), c
+            length, m = n + 1 - length, 1
+        else:
+            c ^= b << m
+            m += 1
+    return c, length
+
+
+@functools.cache
+def characteristic_polynomial() -> int:
+    """chi, the characteristic polynomial of the XorShift128+ state map, as
+    an int (bit i the coefficient of x^i; bit 128 set): Berlekamp-Massey
+    over the low bit of s0 along 512 steps of a SplitMix64-seeded state.
+    The step's minimal polynomial is irreducible of degree 128, so the
+    sequence's own has that degree and is chi."""
+    with np.errstate(over="ignore"):
+        s0 = int(_split_mix_64(np.uint64(1) + _GOLDEN))
+        s1 = int(_split_mix_64(np.uint64(2) + _GOLDEN))
+    bits = []
+    for _ in range(512):
+        bits.append(s0 & 1)
+        s0, s1 = xorshift_state_step(s0, s1)
+    c, length = _berlekamp_massey(bits)
+    if length != 128:
+        raise AssertionError(f"XorShift128+ recurrence of degree {length}")
+    # chi(x) = x^128 C(1/x): C's 129 coefficients reversed
+    return int(f"{c:0129b}"[::-1], 2)
+
+
+_TABLES: dict = {}  # seg -> [q_0, q_seg, q_2seg, ...] as ints
+_TABLES_LOCK = threading.Lock()
+
+
+def jump_table(seg: int, segments: int) -> np.ndarray:
+    """[segments, 2] uint64: row j is q = x^(j seg) mod chi, the jump to
+    batch j * seg of a lane's walk, its bits 0-63 then 64-127. It depends
+    only on seg; each seg's list is kept and extended when a frame needs
+    more segments. Each row is the last times x^seg mod chi, reduced one
+    set bit above x^127 at a time."""
+    if seg <= 0 or segments < 0:
+        raise ValueError(f"jump table of {segments} segments of {seg}")
+    chi = characteristic_polynomial()
+    with _TABLES_LOCK:
+        qs = _TABLES.setdefault(seg, [1])
+        while len(qs) < segments:
+            v = qs[-1] << seg
+            while v >> 128:
+                v ^= chi << (v.bit_length() - 129)
+            qs.append(v)
+        rows = qs[:segments]
+    out = np.empty((segments, 2), dtype=np.uint64)
+    out[:, 0] = [q & _MASK64 for q in rows]
+    out[:, 1] = [q >> 64 for q in rows]
+    return out

@@ -532,12 +532,13 @@ def test_flagship_requests_on_cuda(cuda):
 
 
 # K12 on the shapes of chip_smoke.py's checks: one pixel, W % 16 != 0,
-# partial groups at the right and bottom edges, one group, 2048^2, and the
-# features_up2_1024 field (one 1024^2 group)
+# partial groups at the right and bottom edges, one group, 2048^2, the
+# features_up2_1024 field (one 1024^2 group), and partial 512^2 groups
+# whose lane walks are no multiple of the segment length
 @pytest.mark.parametrize("w,h,gdim", [(1, 1, 128), (17, 5, 128),
                                       (300, 260, 128), (513, 130, 256),
                                       (256, 256, 256), (2048, 2048, 256),
-                                      (1024, 1024, 1024)])
+                                      (1024, 1024, 1024), (1000, 777, 512)])
 def test_noise_kernel_matches_plain(cuda, w, h, gdim):
     import numpy as np
 
@@ -552,6 +553,56 @@ def test_noise_kernel_matches_plain(cuda, w, h, gdim):
     want = noise_field_plain(w, h, gdim, seed0)
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
                                   want.view(np.uint32))
+
+
+@pytest.mark.parametrize("seg", [1, 7, 32, 128, 4096, 100_000])
+def test_noise_kernel_segment_lengths(cuda, seg):
+    """K12 with segments of 1 batch up to longer than a lane's walk (one
+    segment, no jump past row 0 of the table) on partial 512^2 groups: bit
+    for bit the plain version."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch.ops.cuda import noise as k12
+    from jxl_oxide_tpu_torch.ops.noise import noise_field_plain, noise_seed0
+
+    seed0 = noise_seed0(2, 5)
+    out = torch.empty((3, 777, 1000), dtype=torch.float32, device=cuda)
+    k12.launch(out, 512, seed0, seg)
+    torch.cuda.synchronize()
+    want = noise_field_plain(1000, 777, 512, seed0)
+    np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32),
+                                  want.view(np.uint32))
+
+
+def test_noise_kernel_on_outs_device(cuda, monkeypatch):
+    """With cuda:0 current, a field asked for on cuda:1 launches with
+    cuda:1 made current, its jump table on cuda:1, cuda:0 current again
+    after, and the field bit for bit the plain version."""
+    import numpy as np
+
+    from jxl_oxide_tpu_torch.ops.cuda import noise as k12
+    from jxl_oxide_tpu_torch.ops.noise import noise_field_plain
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one CUDA device: the launch's device needs a second")
+    fn = k12._fn()
+    current = []
+
+    def recording(*args):
+        current.append(torch.cuda.current_device())
+        return fn(*args)
+
+    monkeypatch.setattr(k12, "_fn", lambda: recording)
+    k12.clear_jump_tables()
+    with torch.cuda.device(0):
+        got = k12.noise_field_cuda(300, 260, 128, 9, "cuda:1")
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(1)
+    assert current == [1] and got.device == torch.device("cuda", 1)
+    assert {dev for _, dev in k12._tables} == {torch.device("cuda", 1)}
+    np.testing.assert_array_equal(
+        got.cpu().numpy().view(np.uint32),
+        noise_field_plain(300, 260, 128, 9).view(np.uint32))
 
 
 def test_noise_kernel_refuses_bad_arguments(cuda):
@@ -728,20 +779,44 @@ def test_cli_decode_on_cuda(cuda, tmp_path):
     assert tp.max_lsb(png, ref) <= 1
 
 
+def _python_cuda_bytes() -> int:
+    """Bytes of the CUDA storages that Python's live tensors hold."""
+    import gc
+
+    gc.collect()
+    storages = {}
+    for obj in gc.get_objects():
+        if isinstance(obj, torch.Tensor) and obj.is_cuda:
+            st = obj.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    return sum(storages.values())
+
+
 def test_clear_program_caches_on_cuda(cuda):
     """clear_program_caches gives the caching allocator's free blocks
-    back (memory_reserved falls), and the next decode is the same."""
+    back (memory_reserved falls), drops K12's jump tables, and leaves no
+    memory allocated beyond what live Python tensors hold (the cuBLAS
+    workspaces, 32 MiB a handle and stream, were what stayed before); the
+    next decode is the same."""
     import numpy as np
 
     from jxl_oxide_tpu_torch import JxlImage, clear_program_caches
+    from jxl_oxide_tpu_torch.ops.cuda import noise as k12
     from jxl_oxide_tpu_torch.ops.cuda.epf import epf_step_cuda
 
     data, _ = tp.fixture("flagship_1024")
     first = JxlImage.from_bytes(data).render_frame(0).to_u8()
+    k12.noise_field_cuda(300, 260, 128, 1, cuda)
+    a = torch.ones(64, 64, device=cuda)
+    (a @ a).sum().item()  # a cuBLAS workspace on this thread's stream
+    del a
     torch.cuda.synchronize()
+    assert k12._tables
     reserved = torch.cuda.memory_reserved()
     clear_program_caches()
     assert torch.cuda.memory_reserved() < reserved
+    assert not k12._tables
+    assert torch.cuda.memory_allocated() <= _python_cuda_bytes()
     before = epf_step_cuda.launches
     again = JxlImage.from_bytes(data).render_frame(0).to_u8()
     assert epf_step_cuda.launches - before == 2

@@ -23,6 +23,7 @@ from jxl_oxide_tpu.render import context as jax_context
 from jxl_oxide_tpu.render import features as jax_features
 from jxl_oxide_tpu.render import render as jax_render
 from jxl_oxide_tpu_torch import JxlImage
+from jxl_oxide_tpu_torch.ops import noise as noise_ops
 from jxl_oxide_tpu_torch.ops.cuda import build
 from jxl_oxide_tpu_torch.ops.noise import noise_field_plain, noise_seed0
 from jxl_oxide_tpu_torch.ops.upsample import symmetric_pad2
@@ -155,13 +156,41 @@ extern "C" void lane_steps(unsigned long long seed0, unsigned long long seed1,
   for (int i = 0; i < n; ++i) out[i] = next(st);
 }
 
-// the kernel's work: every (group, lane) walk into the [3, h, w] field
+// the kernel's work with each lane's walk in one piece (one segment
+// longer than any walk, its jump by x^0): every (group, lane) thread
 extern "C" void field(float* out, int w, int h, int gdim,
                       unsigned long long seed0) {
   const int groups = ((w + gdim - 1) / gdim) * ((h + gdim - 1) / gdim);
-  for (int g = 0; g < groups; ++g)
-    for (int lane = 0; lane < kLanes; ++lane)
-      walk_lane(out, w, h, group_of(g, w, h, gdim), seed0, lane);
+  const uint64_t identity[2] = {1, 0};
+  for (int tid = 0; tid < groups * kLanes; ++tid)
+    walk_segment(out, w, h, gdim, identity, 1, 1 << 30, seed0, tid);
+}
+
+// lane `lane`'s state after n serial steps, and after the jump by q
+extern "C" void lane_state(unsigned long long seed0, unsigned long long seed1,
+                           int lane, int n, unsigned long long* out) {
+  Lane st = seed_lane(seed0, seed1, lane);
+  for (int i = 0; i < n; ++i) next(st);
+  out[0] = st.s0;
+  out[1] = st.s1;
+}
+
+extern "C" void lane_jumped(unsigned long long seed0, unsigned long long seed1,
+                            int lane, unsigned long long q_lo,
+                            unsigned long long q_hi, unsigned long long* out) {
+  const Lane st = jump(seed_lane(seed0, seed1, lane), q_lo, q_hi);
+  out[0] = st.s0;
+  out[1] = st.s1;
+}
+
+// the segmented launch: every thread of K12's grid in turn
+extern "C" void segmented_field(float* out, int w, int h, int gdim,
+                                unsigned long long seed0,
+                                const unsigned long long* table, int segments,
+                                int seg, int threads) {
+  for (int tid = 0; tid < threads; ++tid)
+    walk_segment(out, w, h, gdim, reinterpret_cast<const uint64_t*>(table),
+                 segments, seg, seed0, tid);
 }
 """
 
@@ -184,6 +213,13 @@ def noise_shim(tmp_path_factory):
                                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.field.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
         ctypes.c_ulonglong]
+    lib.lane_state.argtypes = [ctypes.c_ulonglong, ctypes.c_ulonglong,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.lane_jumped.argtypes = [ctypes.c_ulonglong, ctypes.c_ulonglong,
+                                ctypes.c_int, ctypes.c_ulonglong,
+                                ctypes.c_ulonglong, ctypes.c_void_p]
+    lib.segmented_field.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_ulonglong, ctypes.c_void_p] + [ctypes.c_int] * 3
     return lib
 
 
@@ -207,14 +243,201 @@ def test_split_mix_and_xorshift_match_numpy(noise_shim):
 
 @pytest.mark.parametrize("w,h,gdim", FIELD_CASES)
 def test_kernel_walk_is_the_jax_field(noise_shim, w, h, gdim):
-    """K12's walk (walk_lane for every group and lane, in any order: each
-    writes its own samples) gives the JAX package's field bit for bit:
+    """K12's walk (walk_segment for every group and lane with each lane's
+    walk in one segment, in any order: each writes its own samples) gives
+    the JAX package's field bit for bit:
     partial groups at the right and bottom edges, W % 16 != 0, one
     group, widths under one batch."""
     want = jax_features._noise_field(_Header(w, h, gdim), 2, 1)
     got = np.full((3, h, w), np.nan, dtype=np.float32)
     noise_shim.field(got.ctypes.data, w, h, gdim, noise_seed0(2, 1))
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# -- K12's jump-ahead: chi, the jump table, the jump, the segmented walk ----
+
+JUMPS = [0, 1, 127, 128, 129, 4095, 12_288, 196_607]
+
+
+def _seeded_states(n, seed):
+    """n random XorShift128+ states (nonzero) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**64, (n, 2), dtype=np.uint64, endpoint=False)
+    return [(int(a), int(b) | 1) for a, b in words]
+
+
+def _mulmod(a, b, chi):
+    """a * b mod chi over GF(2), bit by bit: the test's own arithmetic."""
+    r = 0
+    for i in range(b.bit_length()):
+        if b >> i & 1:
+            r ^= a << i
+    for i in range(r.bit_length() - 1, 127, -1):
+        if r >> i & 1:
+            r ^= chi << (i - 128)
+    return r
+
+
+def _x_pow_mod(n, chi):
+    """x^n mod chi by square-and-multiply."""
+    result, base = 1, 2
+    while n:
+        if n & 1:
+            result = _mulmod(result, base, chi)
+        base = _mulmod(base, base, chi)
+        n >>= 1
+    return result
+
+
+def _row(table, j):
+    return int(table[j, 0]) | int(table[j, 1]) << 64
+
+
+def test_chi_annihilates_the_step():
+    """chi as the port computes it (Berlekamp-Massey over the
+    recurrence) has degree 128 and chi(T) s = 0 on seeded random states;
+    the state map is the JAX package's step (its sums, lane by lane)."""
+    chi = noise_ops.characteristic_polynomial()
+    assert chi.bit_length() == 129 and chi & 1
+    for s in _seeded_states(6, 11):
+        acc, t = (0, 0), s
+        for i in range(129):
+            if chi >> i & 1:
+                acc = (acc[0] ^ t[0], acc[1] ^ t[1])
+            t = noise_ops.xorshift_state_step(*t)
+        assert acc == (0, 0)
+    seed0, seed1 = (3 << 32) + 2, 256 << 32
+    lanes = jax_features._xorshift_batches(seed0, seed1, 20).view(
+        "<u8").reshape(20, 8)
+    with np.errstate(over="ignore"):
+        s0 = noise_ops._split_mix_64(np.uint64(seed0) + noise_ops._GOLDEN)
+        s1 = noise_ops._split_mix_64(np.uint64(seed1) + noise_ops._GOLDEN)
+        for lane in range(8):
+            st = (int(s0), int(s1))
+            for b in range(20):
+                assert (st[0] + st[1]) % 2**64 == int(lanes[b, lane])
+                st = noise_ops.xorshift_state_step(*st)
+            s0, s1 = (noise_ops._split_mix_64(s0),
+                      noise_ops._split_mix_64(s1))
+
+
+@pytest.mark.parametrize("n", JUMPS)
+def test_jump_table_and_jump(noise_shim, n):
+    """The jump table's q_n (row 1 of the table of seg n, row 2 of seg
+    n // 2 where n is even) is x^n mod chi by square-and-multiply, and the
+    shim's jump by it from each of lanes 0-7 is n serial steps."""
+    chi = noise_ops.characteristic_polynomial()
+    want = _x_pow_mod(n, chi)
+    if n == 0:
+        q = _row(noise_ops.jump_table(5, 1), 0)
+    else:
+        table = noise_ops.jump_table(n, 3)
+        q = _row(table, 1)
+        assert _row(table, 2) == _x_pow_mod(2 * n, chi)
+        if n % 2 == 0:
+            assert _row(noise_ops.jump_table(n // 2, 3), 2) == q
+    assert q == want
+    serial, jumped = np.zeros(2, np.uint64), np.zeros(2, np.uint64)
+    for (seed0, seed1), lane in zip(_seeded_states(8, n), range(8)):
+        noise_shim.lane_state(seed0, seed1, lane, n, serial.ctypes.data)
+        noise_shim.lane_jumped(seed0, seed1, lane, q & (2**64 - 1), q >> 64,
+                               jumped.ctypes.data)
+        np.testing.assert_array_equal(jumped, serial)
+
+
+def test_jump_table_rows_are_powers():
+    """Every row of a table of seg 7 (a few hundred, extended in two calls)
+    is x^(7 j) mod chi."""
+    chi = noise_ops.characteristic_polynomial()
+    short = noise_ops.jump_table(7, 40)
+    table = noise_ops.jump_table(7, 300)
+    np.testing.assert_array_equal(table[:40], short)
+    for j in range(300):
+        assert _row(table, j) == _x_pow_mod(7 * j, chi)
+
+
+@pytest.mark.parametrize("seg", [7, 16])
+@pytest.mark.parametrize("w,h,gdim", FIELD_CASES)
+def test_segmented_walk_is_the_jax_field(noise_shim, w, h, gdim, seg):
+    """K12's launch (walk_segment for every thread of its grid, in any
+    order: each writes its own samples) with segments of 7 or 16 batches,
+    so that segments cross rows and channels and the last one is short,
+    gives the JAX package's field bit for bit."""
+    from jxl_oxide_tpu_torch.ops.cuda.noise import launch_shape
+
+    segments, threads = launch_shape(w, h, gdim, seg)
+    table = np.ascontiguousarray(noise_ops.jump_table(seg, segments))
+    want = jax_features._noise_field(_Header(w, h, gdim), 2, 1)
+    got = np.full((3, h, w), np.nan, dtype=np.float32)
+    noise_shim.segmented_field(got.ctypes.data, w, h, gdim, noise_seed0(2, 1),
+                               table.ctypes.data, segments, seg, threads)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+class _FakeDevice:
+    type, index = "cuda", 1
+
+
+class _FakeOut:
+    """A stand-in for a [3, 40, 70] float32 tensor on cuda:1."""
+
+    shape = (3, 40, 70)
+    device = _FakeDevice()
+
+    def data_ptr(self):
+        return 0x1000
+
+
+def test_k12_launch_runs_on_outs_device(monkeypatch):
+    """ops/cuda/noise.py `launch` makes out's device current around the
+    kernel's launch (and restores the one before), takes that device's
+    current stream, and asks for the jump table on that device."""
+    from jxl_oxide_tpu_torch.ops.cuda import noise as k12
+
+    events = []
+
+    class Table:
+        shape = (9, 2)
+
+        def data_ptr(self):
+            return 0x2000
+
+    def device_table(seg, segments, device):
+        events.append(("table", seg, segments, device.index))
+        return Table()
+
+    def exchange(index):
+        events.append(("exchange", index))
+        return 0
+
+    def fn(*args):
+        events.append(("launch", args))
+        return 0
+
+    monkeypatch.setattr(k12, "_fn", lambda: fn)
+    monkeypatch.setattr(k12, "_device_table", device_table)
+    monkeypatch.setattr(torch.cuda, "_exchange_device", exchange)
+    monkeypatch.setattr(torch.cuda, "_maybe_exchange_device",
+                        lambda index: events.append(("restore", index)))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: events.append(("stream", index)) or 77,
+                        raising=False)
+    k12.launch(_FakeOut(), 128, 5, seg=16)
+    segments, _ = k12.launch_shape(70, 40, 128, 16)
+    assert events == [
+        ("table", 16, segments, 1), ("exchange", 1), ("stream", 1),
+        ("launch", (0x1000, 70, 40, 128, 5, 0x2000, 9, 16, 77)),
+        ("restore", 0)]
+
+
+def test_clear_program_caches_drops_the_jump_tables():
+    from jxl_oxide_tpu_torch import clear_program_caches
+    from jxl_oxide_tpu_torch.ops.cuda import noise as k12
+
+    k12._tables[(16, torch.device("cpu"))] = torch.zeros(3, 2,
+                                                         dtype=torch.int64)
+    clear_program_caches()
+    assert not k12._tables
 
 
 # -- noise and spline rendering ---------------------------------------------
