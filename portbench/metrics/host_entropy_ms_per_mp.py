@@ -1,0 +1,14 @@
+"""host_entropy_ms_per_mp (ms/MP): the summed time of the port's `Host entropy stage`
+spans that closed in the window, over the megapixels completed there."""
+
+SPANS = ('Host entropy stage',)
+
+
+def read(record):
+    if not record["mp"]:
+        return None
+    total = sum(end - start for name, start, end in record["spans"]
+                if name in SPANS)
+    if not total:
+        return None
+    return total * 1e3 / record["mp"]
