@@ -23,8 +23,11 @@ import ctypes
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
+
+from ..utils.trace import span
 
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO_ROOT = os.path.dirname(_PKG_ROOT)
@@ -36,6 +39,9 @@ _LIB = os.path.join(_LIB_DIR, "libjxl_host.so")
 
 _lib = None
 _tried = False
+# the first callers wait for the build: a pool thread that found it under
+# way would otherwise take the Python path (and other input dtypes)
+_load_lock = threading.Lock()
 
 
 def _lib_path() -> str:
@@ -49,8 +55,6 @@ def _lib_path() -> str:
         return os.path.join(_LIB_DIR, "libjxl_host_tsan.so")
     if san:
         return os.path.join(_LIB_DIR, "libjxl_host_asan.so")
-    if os.environ.get("JXL_TPU_NATIVE_PROF"):
-        return os.path.join(_LIB_DIR, "libjxl_host_prof.so")
     return _LIB
 
 
@@ -81,10 +85,6 @@ def _build() -> bool:
         opt = ["-O3", "-march=native"]
         if platform.machine().lower() in ("x86_64", "amd64", "i686"):
             opt.append("-mno-avx512f")
-        if os.environ.get("JXL_TPU_NATIVE_PROF"):
-            # rdtsc stage attribution (the dev VM has no PMU); see
-            # ProfScope in jxl_host.cpp. Single-thread measurements only.
-            opt.append("-DJXL_PROF")
     # per-process temporary: concurrent first imports (test workers) each
     # build and the last atomic rename wins
     tmp = f"{lib_path}.{os.getpid()}.tmp"
@@ -106,14 +106,15 @@ def get_lib():
     global _lib, _tried
     if _tried:
         return _lib
-    _tried = True
-    if os.environ.get("JXL_TPU_NO_NATIVE"):
-        return None
-    if not _build():
-        return None
-    lib = ctypes.CDLL(_lib_path())
-    lib.jxlhost_decode_modular.restype = ctypes.c_int
-    _lib = lib
+    with _load_lock:
+        if not _tried:
+            try:
+                if not os.environ.get("JXL_TPU_NO_NATIVE") and _build():
+                    lib = ctypes.CDLL(_lib_path())
+                    lib.jxlhost_decode_modular.restype = ctypes.c_int
+                    _lib = lib
+            finally:
+                _tried = True
     return _lib
 
 
@@ -535,11 +536,12 @@ def sparse_extract(flat_i32: np.ndarray, out_idx: np.ndarray,
     def ip(a):
         return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
-    cnt = lib.jxlhost_sparse_extract_i32(
-        ip(flat_i32), ctypes.c_int64(flat_i32.size),
-        ctypes.c_int64(len(out_idx)), ip(out_idx), ip(out_val),
-        ctypes.byref(max_abs),
-    )
+    with span("Native", fn="sparse_extract"):
+        cnt = lib.jxlhost_sparse_extract_i32(
+            ip(flat_i32), ctypes.c_int64(flat_i32.size),
+            ctypes.c_int64(len(out_idx)), ip(out_idx), ip(out_val),
+            ctypes.byref(max_abs),
+        )
     return int(cnt), int(max_abs.value)
 
 
@@ -561,13 +563,15 @@ def place_varblocks(block_info_raw, bh: int, bw: int, group_blocks: int,
     def ip(a):
         return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
-    ret = lib.jxlhost_place_varblocks(
-        ip(info), ctypes.c_int64(n_raw),
-        ctypes.c_int32(bh), ctypes.c_int32(bw), ctypes.c_int32(group_blocks),
-        ip(sizes), ctypes.c_int32(len(sizes) // 2),
-        sel_grid.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-        ip(mul_grid), ip(mul_full),
-    )
+    with span("Native", fn="place_varblocks"):
+        ret = lib.jxlhost_place_varblocks(
+            ip(info), ctypes.c_int64(n_raw),
+            ctypes.c_int32(bh), ctypes.c_int32(bw),
+            ctypes.c_int32(group_blocks),
+            ip(sizes), ctypes.c_int32(len(sizes) // 2),
+            sel_grid.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+            ip(mul_grid), ip(mul_full),
+        )
     if ret != 0:
         msgs = {
             1: "invalid TransformType",
@@ -843,7 +847,7 @@ def decode_hf_group_native(
 
     bit_pos = ctypes.c_uint64(bs.pos)
     data = bs.data
-    with native_budget():
+    with native_budget(), span("Native", fn="decode_hf_group_native"):
         ret = lib.jxlhost_decode_hf_group(
         ctypes.cast(ctypes.c_char_p(data), ctypes.POINTER(ctypes.c_uint8)),
         ctypes.c_uint64(len(data)),
@@ -1046,15 +1050,17 @@ def parse_decoder_native(bs, num_dist: int, allow_lz77: bool):
     out_len = ctypes.c_int64()
     bit_pos = ctypes.c_uint64(bs.pos)
     data = bs.data
-    ret = lib.jxlhost_parse_decoder(
-        ctypes.cast(ctypes.c_char_p(data), ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.c_uint64(len(data)),
-        ctypes.byref(bit_pos),
-        ctypes.c_int32(num_dist),
-        ctypes.c_int32(1 if allow_lz77 else 0),
-        ctypes.byref(out_buf),
-        ctypes.byref(out_len),
-    )
+    with span("Native", fn="parse_decoder_native"):
+        ret = lib.jxlhost_parse_decoder(
+            ctypes.cast(ctypes.c_char_p(data),
+                        ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_uint64(len(data)),
+            ctypes.byref(bit_pos),
+            ctypes.c_int32(num_dist),
+            ctypes.c_int32(1 if allow_lz77 else 0),
+            ctypes.byref(out_buf),
+            ctypes.byref(out_len),
+        )
     if ret == 4:
         raise JxlEofError("entropy header truncated (native)")
     if ret == 150:
@@ -1231,7 +1237,7 @@ def decode_lf_groups_batch(
     else:
         g_args = (zt(), zt(), zt(), zt(), zt(), zt(), zt())
 
-    with native_budget():
+    with native_budget(), span("Native", fn="decode_lf_groups_batch"):
         lib.jxlhost_decode_lf_groups_batch(
             ip(gnodes), ctypes.c_int64(n_gnodes),
             *g_args,
@@ -1283,12 +1289,13 @@ def zeroed_planes(shapes, dtype=np.int32):
         ptrs[i] = a.ctypes.data
         sizes[i] = a.nbytes
     total_mb = int(sizes.sum() >> 20)
-    lib.jxlhost_memzero_batch(
-        ctypes.cast(ptrs, ctypes.POINTER(ctypes.c_void_p)),
-        sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-        ctypes.c_int32(n),
-        ctypes.c_int32(num_workers(max(1, total_mb // 4))),
-    )
+    with span("Native", fn="zeroed_planes"):
+        lib.jxlhost_memzero_batch(
+            ctypes.cast(ptrs, ctypes.POINTER(ctypes.c_void_p)),
+            sizes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            ctypes.c_int32(n),
+            ctypes.c_int32(num_workers(max(1, total_mb // 4))),
+        )
     return arrays
 
 
@@ -1359,7 +1366,7 @@ def decode_hf_groups_batch_raw(
     sec_bit_pos = np.zeros(n_sections, dtype=np.uint64)
     sec_ret = np.zeros(n_sections, dtype=np.int32)
 
-    with native_budget():
+    with native_budget(), span("Native", fn="decode_hf_groups_batch_raw"):
         ret = lib.jxlhost_decode_hf_groups_batch(
             ctypes.c_int32(n_passes),
             pass_specs, pass_ord,

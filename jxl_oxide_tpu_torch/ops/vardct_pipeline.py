@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.trace import count, device_span
 from .filters import apply_epf, gabor
 from .varblock import inverse_varblock_batch
 
@@ -429,8 +430,8 @@ def build_fused_pipeline(plane_shape, lf_shape, entries,
     qbn = float(np.float32(quant_bias_numerator))
     kx0, kb0 = (float(np.float32(v)) for v in cfl_lf_k)
 
-    def pipeline(coeff, lf_quant, lf_scale_arr, x_grid, b_grid,
-                 sigma_blocks, code_grid, mul_grid):
+    def transform(coeff, lf_quant, lf_scale_arr, x_grid, b_grid,
+                  code_grid, mul_grid):
         if sparse_coeff_n is not None:
             coeff = _sparse_to_dense(coeff, (3, H, W))
         # --- LF: dequant + CfL + smoothing ---
@@ -464,14 +465,20 @@ def build_fused_pipeline(plane_shape, lf_shape, entries,
                 64, -1)[:, :H, :W]
 
         biased = _bias(coeff, qb, qbn)
-        out = dense_transform_channels(
+        return dense_transform_channels(
             biased, lf_planes, kx_map, kb_map,
             code_grid, mul_grid.to(torch.float32), entries, matrices,
             global_scale, qm_scale, consts=consts,
         )
 
-        return _filter_tail(out, sigma_blocks, gabor_weights, epf_params,
-                            embed, crop)
+    def pipeline(coeff, lf_quant, lf_scale_arr, x_grid, b_grid,
+                 sigma_blocks, code_grid, mul_grid):
+        with device_span("Transform", lf_quant.device):
+            out = transform(coeff, lf_quant, lf_scale_arr, x_grid, b_grid,
+                            code_grid, mul_grid)
+        with device_span("Filters", out.device):
+            return _filter_tail(out, sigma_blocks, gabor_weights, epf_params,
+                                embed, crop)
 
     return _one_image(pipeline)
 
@@ -569,7 +576,7 @@ def build_fused_pipeline_subsampled(
         for c in range(3)
     ]
 
-    def pipeline(*args):
+    def transform(*args):
         planes = []
         for c in range(3):
             coeff, lf_quant, code_grid, mul_grid = args[4 * c : 4 * c + 4]
@@ -581,8 +588,14 @@ def build_fused_pipeline_subsampled(
             while outc.shape[-2] < Hr:
                 outc = _triangle_up2(outc, -2)
             planes.append(outc[:, :Hr, :Wr])
-        return _filter_tail(torch.stack(planes, dim=1), args[12],
-                            gabor_weights, epf_params, embed, crop)
+        return torch.stack(planes, dim=1)
+
+    def pipeline(*args):
+        with device_span("Transform", args[1].device):
+            out = transform(*args)
+        with device_span("Filters", out.device):
+            return _filter_tail(out, args[12], gabor_weights, epf_params,
+                                embed, crop)
 
     return _one_image(pipeline)
 
@@ -986,7 +999,8 @@ def upload_inputs(inputs, device):
     buffer before this returns, so the caller may write into them while
     the copy to the card is in flight (a loading frame's cached planes
     take later sections); the caching host allocator keeps the staging
-    block until that copy is done."""
+    block until that copy is done. The staging buffer's size counts as
+    `bytes` of the open span (`Upload`) while recording."""
     device = torch.device(device)
     flat = _flatten(inputs)
     for x in flat:
@@ -1004,6 +1018,7 @@ def upload_inputs(inputs, device):
         total += -(-a.nbytes // _ALIGN) * _ALIGN
     pin = device.type == "cuda"
     staging = torch.empty(max(total, 1), dtype=torch.uint8, pin_memory=pin)
+    count(bytes=staging.numel())
     host = staging.numpy()
     for a, off in zip(arrays, offsets):
         host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)

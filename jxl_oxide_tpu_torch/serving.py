@@ -35,7 +35,7 @@ from .api import JxlImage, _finalize
 from .render.render import host_stage
 from .utils.errors import JxlNotSupportedError
 from .utils.options import use_decode_device
-from .utils.trace import span
+from .utils.trace import bind, device_span, span
 
 __all__ = ["decode_batch", "decode_batch_stacked", "decode_iter"]
 
@@ -43,7 +43,8 @@ _OUTPUT_KINDS = ("u8", "f32", "device", "render")
 
 
 def _decode_one(data: bytes, frame: int, output: str, builder_kwargs):
-    img = JxlImage.from_bytes(data, **builder_kwargs)
+    with span("Parse headers"):
+        img = JxlImage.from_bytes(data, **builder_kwargs)
     r = img.render_frame(frame)
     if output == "render":
         return r
@@ -71,13 +72,14 @@ def decode_batch(streams: Sequence[bytes], *, frame: int = 0,
     streams = list(streams)
     if not streams:
         return []
-    if len(streams) == 1 or num_workers <= 1:
-        return [_decode_one(d, frame, output, builder_kwargs)
-                for d in streams]
-    with _cf.ThreadPoolExecutor(max_workers=num_workers) as ex:
-        futs = [ex.submit(_decode_one, d, frame, output, builder_kwargs)
-                for d in streams]
-        return [f.result() for f in futs]
+    with span("Decode batch"):
+        if len(streams) == 1 or num_workers <= 1:
+            return [_decode_one(d, frame, output, builder_kwargs)
+                    for d in streams]
+        with _cf.ThreadPoolExecutor(max_workers=num_workers) as ex:
+            futs = [ex.submit(bind(_decode_one), d, frame, output,
+                              builder_kwargs) for d in streams]
+            return [f.result() for f in futs]
 
 
 def decode_iter(streams: Iterable[bytes], *, frame: int = 0,
@@ -92,8 +94,8 @@ def decode_iter(streams: Iterable[bytes], *, frame: int = 0,
     pending: collections.deque = collections.deque()
     with _cf.ThreadPoolExecutor(max_workers=num_workers) as ex:
         for data in streams:
-            pending.append(
-                ex.submit(_decode_one, data, frame, output, builder_kwargs))
+            pending.append(ex.submit(bind(_decode_one), data, frame,
+                                     output, builder_kwargs))
             while len(pending) >= window:
                 yield pending.popleft().result()
         while pending:
@@ -207,7 +209,7 @@ def _decode_stack(chunk, key, output: str) -> list:
     device = img0.device
     # one program serves the per-image and the stacked decodes
     fn = VardctFrameState.program(key, make_fn0, device)
-    with span("Stacked program inputs"):
+    with span("Stacked program inputs", images=len(chunk)):
         host = stack_inputs([c[3] for c in chunk])
         if alpha0 is not None:
             host.append(np.stack([c[4] for c in chunk]))
@@ -216,20 +218,22 @@ def _decode_stack(chunk, key, output: str) -> list:
     with span("Stacked program"):
         n_inputs = len(host) - (alpha0 is not None)
         out = fn.stacked(*placed[:n_inputs])  # [N, 3, h, w]
-    planes = [out[:, c] for c in range(3)]
-    if state0.frame.header.do_ycbcr:
-        # stream channel order is [Cb, Y, Cr]
-        planes = list(ycbcr_to_rgb(planes[0], planes[1], planes[2]))
-    planes = img0._run_transform(img0._color_transform(), planes)
-    if alpha0 is not None:
-        bits = img0.image_header.metadata.ec_info[0].bit_depth.bits_per_sample
-        planes.append(integer_samples_to_float(placed[-1], bits))
-    if output == "u8":
-        res = _finalize(planes, 1, 255.0, torch.uint8).cpu().numpy()
-    elif output == "f32":
-        res = _finalize(planes, 1, None, None).cpu().numpy()
-    else:  # "device": one interleave on the card, no readback
-        res = _finalize(planes, 1, None, None)
+    with span("Colour tail"), device_span("Colour tail", device):
+        planes = [out[:, c] for c in range(3)]
+        if state0.frame.header.do_ycbcr:
+            # stream channel order is [Cb, Y, Cr]
+            planes = list(ycbcr_to_rgb(planes[0], planes[1], planes[2]))
+        planes = img0._run_transform(img0._color_transform(), planes)
+        if alpha0 is not None:
+            bits = (img0.image_header.metadata.ec_info[0].bit_depth
+                    .bits_per_sample)
+            planes.append(integer_samples_to_float(placed[-1], bits))
+        if output == "u8":
+            res = _finalize(planes, 1, 255.0, torch.uint8).cpu().numpy()
+        elif output == "f32":
+            res = _finalize(planes, 1, None, None).cpu().numpy()
+        else:  # "device": one interleave on the card, no readback
+            res = _finalize(planes, 1, None, None)
     return [res[j] for j in range(len(chunk))]
 
 
@@ -258,7 +262,8 @@ def decode_batch_stacked(streams: Sequence[bytes], *, frame: int = 0,
     def host_stage(i):
         """The stream's host entropy stage and its program inputs; the
         stage's inputs are None for the per-image path."""
-        img = JxlImage.from_bytes(streams[i], **builder_kwargs)
+        with span("Parse headers"):
+            img = JxlImage.from_bytes(streams[i], **builder_kwargs)
         try:
             fast = _host_stage_fast(img, frame)
         except JxlNotSupportedError:  # no colour transform: per image
@@ -279,34 +284,40 @@ def decode_batch_stacked(streams: Sequence[bytes], *, frame: int = 0,
         state.trim_coeff_planes()
         return i, img, None if parts is None else (state, fr, alpha, parts)
 
-    with _cf.ThreadPoolExecutor(max_workers=max(1, num_workers)) as ex:
-        host_out = list(ex.map(host_stage, range(len(streams))))
+    with span("Decode batch"):
+        with _cf.ThreadPoolExecutor(max_workers=max(1, num_workers)) as ex:
+            futs = [ex.submit(bind(host_stage), i)
+                    for i in range(len(streams))]
+            host_out = [f.result() for f in futs]
 
-    groups: dict = {}
-    slow: list = []
-    for i, img, fast in host_out:
-        if fast is None:
-            slow.append(i)
-            continue
-        state, fr, alpha, (key, make_fn, inputs) = fast
-        alpha_bits = (None if alpha is None else img.image_header.metadata
-                      .ec_info[0].bit_depth.bits_per_sample)
-        gkey = (key, _tail_key(img, fr), _dtype_key(inputs), alpha_bits,
-                str(img.device))
-        groups.setdefault(gkey, []).append(
-            (i, (img, state, make_fn, inputs, alpha)))
+        groups: dict = {}
+        slow: list = []
+        for i, img, fast in host_out:
+            if fast is None:
+                slow.append(i)
+                continue
+            state, fr, alpha, (key, make_fn, inputs) = fast
+            alpha_bits = (None if alpha is None
+                          else img.image_header.metadata.ec_info[0]
+                          .bit_depth.bits_per_sample)
+            gkey = (key, _tail_key(img, fr), _dtype_key(inputs),
+                    alpha_bits, str(img.device))
+            groups.setdefault(gkey, []).append(
+                (i, (img, state, make_fn, inputs, alpha)))
 
-    for gkey, members in groups.items():
-        for s0 in range(0, len(members), max_stack):
-            chunk = members[s0:s0 + max_stack]
-            outs = _decode_stack([m for _, m in chunk], gkey[0], output)
-            for (i, _), r in zip(chunk, outs):
+        for gkey, members in groups.items():
+            for s0 in range(0, len(members), max_stack):
+                chunk = members[s0:s0 + max_stack]
+                outs = _decode_stack([m for _, m in chunk], gkey[0],
+                                     output)
+                for (i, _), r in zip(chunk, outs):
+                    results[i] = r
+
+        if slow:
+            slow_res = decode_batch([streams[i] for i in slow],
+                                    frame=frame, output=output,
+                                    num_workers=num_workers,
+                                    **builder_kwargs)
+            for i, r in zip(slow, slow_res):
                 results[i] = r
-
-    if slow:
-        slow_res = decode_batch([streams[i] for i in slow], frame=frame,
-                                output=output, num_workers=num_workers,
-                                **builder_kwargs)
-        for i, r in zip(slow, slow_res):
-            results[i] = r
-    return results
+        return results

@@ -51,3 +51,40 @@ def test_roi_rect_inputs_bit_identical():
     _, _, jin = tp.jax_parts(data, rect=rect)
     _, _, tin = tp.torch_parts(data, rect=rect)
     _assert_inputs_identical(jin, tin)
+
+
+def test_callers_wait_for_the_native_build(monkeypatch):
+    """A pool thread that asks for the native library while another thread
+    builds it waits for that build (before, it took the Python path, and
+    the stream other program-input dtypes); the build runs once."""
+    import threading
+    import time
+
+    from jxl_oxide_tpu_torch import native
+
+    builds, done, got = [], [], []
+
+    def slow_build():
+        builds.append(1)
+        time.sleep(0.3)
+        done.append(time.perf_counter())
+        return False  # no library: both callers read None after the build
+
+    monkeypatch.setattr(native, "_build", slow_build)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.delenv("JXL_TPU_NO_NATIVE", raising=False)
+
+    def call():
+        lib = native.get_lib()
+        got.append((time.perf_counter(), lib))
+
+    threads = [threading.Thread(target=call) for _ in range(2)]
+    threads[0].start()
+    time.sleep(0.05)
+    threads[1].start()
+    for t in threads:
+        t.join(timeout=30)
+    assert builds == [1]
+    assert len(got) == 2 and all(lib is None for _, lib in got)
+    assert all(t >= done[0] for t, _ in got)
